@@ -5,8 +5,16 @@
 
 Phase 1 builds the CUDA kernels from ``scannertools_tpu_torch/kernels/csrc``
 and holds each one to its plain torch version on the card (difference 0) at
-ragged geometries, at the main path's 1080p 64-frame chunk and at one
-7680x4320 frame; it times kernel and plain version with CUDA events.
+ragged geometries (I420 widths that are not a multiple of 16, unaligned
+frames), at the main path's 1080p 64-frame chunk on random, flat-colour and
+all-bin-15 frames, and at one 7680x4320 frame. It times with CUDA events,
+median of 20 calls, each call on an idle card with the wrapper's host work
+inside the window (the method of the first port): each kernel's wrapper
+(``ms``; on flat frames, ``flat_ms``), its plain version (``plain_ms``),
+and one PyTorch reduction over the same bytes (``read_ms``: the card's own
+read rate on them). ``device_ms`` is the kernel's time alone: the card is
+kept busy while the wrapper's host work runs, so only the device's time of
+the call is measured.
 
 Phase 2 drives the main path through the public API on the default device:
 ``Client() -> Histogram -> ShotBoundaries -> NamedStream`` over a 1080p,
@@ -56,8 +64,16 @@ def log(obj) -> None:
 # ------------------------------------------------------------ timing
 
 
-def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median of ``reps`` single calls, each timed with CUDA events."""
+# A spin of this many card cycles (about 0.5 ms) before the start event
+# keeps the card busy while the host prepares the timed call.
+FENCE_CYCLES = 1_000_000
+
+
+def time_ms(fn, reps: int = 20, warm: int = 3, fence: bool = False) -> float:
+    """Median of ``reps`` single calls, each timed with CUDA events. With
+    ``fence`` the card spins before the start event, so the host's work in
+    ``fn`` overlaps the spin and only the device's time of the call is
+    measured; without it the card waits for the host inside the window."""
     import torch
 
     for _ in range(warm):
@@ -67,12 +83,26 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if fence:
+            torch.cuda._sleep(FENCE_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def read_ms(x) -> float:
+    """One PyTorch reduction over the bytes of ``x``: the card's own read
+    rate on them (an int64 sum; PyTorch's int32 sum runs several times
+    slower)."""
+    import torch
+
+    flat = x.reshape(-1)
+    words = flat.view(torch.int64) if flat.numel() % 8 == 0 else \
+        flat.view(torch.int32)
+    return time_ms(lambda: words.sum())
 
 
 def bound_ms(bytes_moved: float, fp32_ops: float) -> tuple:
@@ -113,49 +143,117 @@ def check_kernels():
     def lane_rows(t, payload):
         return random_frames(gen, t, -(-payload // LANES) * LANES)
 
+    def unaligned(x):  # the same frames, one byte past a 16-byte boundary
+        buf = torch.zeros(x.numel() + 16, dtype=torch.uint8, device="cuda")
+        out = buf[1:x.numel() + 1].view(x.shape)
+        out.copy_(x)
+        return out
+
+    def flat_rgb(t, h, w, rng=None):
+        """One colour, or (rng=(lo, hi)) random bytes in [lo, hi)."""
+        n = -(-h * w * 3 // LANES) * LANES
+        x = torch.zeros((t, n), dtype=torch.uint8, device="cuda")
+        px = x[:, :h * w * 3].view(t, h * w, 3)
+        if rng is None:
+            px.copy_(torch.tensor(COLORS[0], dtype=torch.uint8))
+        else:
+            px.copy_(torch.randint(rng[0], rng[1], px.shape,
+                                   dtype=torch.uint8, device="cuda",
+                                   generator=gen))
+        return x
+
+    def flat_i420(t, h, w, yuv, y_range=None):
+        """One Y, U, V, or (y_range) random luma over grey chroma."""
+        n = -(-h * w * 3 // 2 // LANES) * LANES
+        x = torch.zeros((t, n), dtype=torch.uint8, device="cuda")
+        x[:, :h * w] = yuv[0]
+        x[:, h * w:h * w * 5 // 4] = yuv[1]
+        x[:, h * w * 5 // 4:h * w * 3 // 2] = yuv[2]
+        if y_range is not None:
+            x[:, :h * w] = torch.randint(y_range[0], y_range[1], (t, h * w),
+                                         dtype=torch.uint8, device="cuda",
+                                         generator=gen)
+        return x
+
+    def check_rgb(flat, t, h, w, c=3, **tags):
+        npix = h * w * c
+        got = H.hist_rgb(flat, npix, c)
+        compare("hist_rgb", got, H.hist_rgb_plain(flat, npix, c), t=t, h=h,
+                w=w, c=c, **tags)
+        return got
+
+    def check_i420(flat, t, h, w, coef_sets=((False, False),), **tags):
+        for bt709, full in coef_sets:
+            got = H.hist_i420(flat, h, w, full, bt709)
+            compare("hist_i420", got,
+                    H.hist_i420_plain(flat, h, w, full, bt709), t=t, h=h,
+                    w=w, bt709=bt709, full_range=full, **tags)
+        return got
+
+    all_coefs = [(b, f) for b in (False, True) for f in (False, True)]
+
     # RGB byte streams in the FrameChunk layout, plus unaligned NHWC tensors
-    # (the byte-load path) and 1- and 4-channel streams
+    # (the byte-load path) and 1- to 6-channel streams
     for t, h, w in [(3, 33, 17), (2, 120, 128), (CHUNK, HEIGHT, WIDTH),
                     (1, 4320, 7680)]:
         flat = lane_rows(t, h * w * 3)
-        npix = h * w * 3
-        compare("hist_rgb", H.hist_rgb(flat, npix, 3),
-                H.hist_rgb_plain(flat, npix, 3), t=t, h=h, w=w, c=3)
+        check_rgb(flat, t, h, w)
         if (t, h, w) == (CHUNK, HEIGHT, WIDTH):
+            npix = h * w * 3
             nbytes = t * npix
             bound, by = bound_ms(nbytes + t * 3 * 16 * 4, nbytes)
+            flat_frames = flat_rgb(t, h, w)
             records["hist_rgb"] = {
                 "ms": time_ms(lambda: H.hist_rgb(flat, npix, 3)),
+                "flat_ms": time_ms(lambda: H.hist_rgb(flat_frames, npix, 3)),
+                "device_ms": time_ms(lambda: H.hist_rgb(flat, npix, 3),
+                                     fence=True),
+                "read_ms": read_ms(flat),
                 "plain_ms": time_ms(lambda: H.hist_rgb_plain(flat, npix, 3),
                                     reps=5, warm=1),
                 "bound_ms": bound, "bound_by": by}
+            check_rgb(flat_frames, t, h, w, frames="flat")
+            del flat_frames
+            got = check_rgb(flat_rgb(t, h, w, (240, 256)), t, h, w,
+                            frames="bin15")
+            if not (got[:, :, 15] == h * w).all():
+                raise AssertionError("hist_rgb: bin-15 frames miscounted")
+            check_rgb(unaligned(flat[:2]), 2, h, w, layout="unaligned")
         del flat
-    for t, h, w, c in [(3, 33, 17, 3), (2, 31, 29, 1), (2, 45, 37, 4)]:
+    for t, h, w, c in [(3, 33, 17, 3), (2, 31, 29, 1), (2, 45, 37, 4),
+                       (2, 23, 41, 2), (2, 23, 41, 5), (2, 23, 41, 6)]:
         nhwc = random_frames(gen, t, h * w * c).reshape(t, h, w, c)
-        compare("hist_rgb", H.hist_rgb(nhwc, h * w * c, c),
-                H.hist_rgb_plain(nhwc, h * w * c, c), t=t, h=h, w=w, c=c,
-                layout="nhwc")
+        check_rgb(nhwc, t, h, w, c, layout="nhwc")
 
-    for t, h, w in [(3, 34, 18), (2, 120, 128), (CHUNK, HEIGHT, WIDTH),
-                    (1, 4320, 7680)]:
+    for t, h, w in [(3, 34, 18), (2, 120, 128), (2, HEIGHT, WIDTH - 2),
+                    (CHUNK, HEIGHT, WIDTH), (1, 4320, 7680)]:
         flat = lane_rows(t, h * w * 3 // 2)
-        for bt709 in (False, True):
-            for full in (False, True):
-                compare("hist_i420",
-                        H.hist_i420(flat, h, w, full, bt709),
-                        H.hist_i420_plain(flat, h, w, full, bt709),
-                        t=t, h=h, w=w, bt709=bt709, full_range=full)
+        check_i420(flat, t, h, w, all_coefs)
         if (t, h, w) == (CHUNK, HEIGHT, WIDTH):
             nbytes = t * h * w * 3 // 2
             # per luma sample: (Y-yo)*ys and three sums; per chroma sample:
             # two offsets and four products
             ops = t * (6 * h * w + 6 * (h // 2) * (w // 2))
             bound, by = bound_ms(nbytes + t * 3 * 16 * 4, ops)
+            red = flat_i420(t, h, w, (81, 90, 240))  # red, limited BT.601
             records["hist_i420"] = {
                 "ms": time_ms(lambda: H.hist_i420(flat, h, w)),
+                "flat_ms": time_ms(lambda: H.hist_i420(red, h, w)),
+                "device_ms": time_ms(lambda: H.hist_i420(flat, h, w),
+                                     fence=True),
+                "read_ms": read_ms(flat),
                 "plain_ms": time_ms(lambda: H.hist_i420_plain(flat, h, w),
                                     reps=5, warm=1),
                 "bound_ms": bound, "bound_by": by}
+            check_i420(red, t, h, w, frames="flat")
+            del red
+            # near-white luma over grey chroma: every value >= 240, most
+            # past 255 (counted apart in the kernel, folded into bin 15)
+            got = check_i420(flat_i420(t, h, w, (0, 128, 128), (235, 256)),
+                             t, h, w, frames="bin15")
+            if not (got[:, :, 15] == h * w).all():
+                raise AssertionError("hist_i420: bin-15 frames miscounted")
+            check_i420(unaligned(flat[:2]), 2, h, w, layout="unaligned")
         del flat
     torch.cuda.synchronize()
     for name in records:

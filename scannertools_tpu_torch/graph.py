@@ -4,8 +4,9 @@ Reference parity: the scannerpy op graph — ``sc.io.Input`` → ``sc.ops.X(...)
 → ``sc.io.Output`` with ``sc.streams.Gather/Range/Stride`` sampling
 (reference scannertools/tests/test_all.py:38-47,150-177). In the reference
 this graph is serialized to protos and shipped over gRPC to the Scanner
-master; here it is a small host-side IR that the executor lowers to jitted
-JAX programs per frame-chunk (see runtime/executor.py).
+master; here it is a small host-side IR that the executor runs per
+frame-chunk as eager PyTorch ops and CUDA kernels (see
+runtime/executor.py).
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ class OpNode(Node):
         super().__init__("op", op_name)
         self.inputs = inputs
         self.params = params
-        # None = default accelerator; "cpu" = force the JAX CPU backend
+        # None = the client's device (CUDA); "cpu" = run on CPU tensors
         # (reference per-op device=DeviceType.CPU; tests/test_all.py:141-147)
         self.device = device
 

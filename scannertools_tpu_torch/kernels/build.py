@@ -32,7 +32,7 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -68,11 +68,12 @@ def build_all(names=None) -> Dict[str, str]:
     todo = [n for n in names if not os.path.isfile(out[n])]
     if not todo:
         return out
-    nvcc = _nvcc()
+    nvcc_path = nvcc()
     procs = []
     for n in todo:
         tmp = f"{out[n]}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        cmd = [nvcc_path, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, f"{n}.cu")]
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []

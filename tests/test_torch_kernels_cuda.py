@@ -1,7 +1,12 @@
 """The port's CUDA kernels held to their plain versions on the card
 (difference 0), at small geometries that cover the ragged cases: lane
-padding, unaligned NHWC rows (the byte-load path), 1 to 4 channels, and all
-four I420 coefficient sets. Inputs are made from a seed with numpy.
+padding, unaligned NHWC rows (the byte-load path), 1 to 6 channels, all
+four I420 coefficient sets, I420 widths that are not a multiple of 16 and
+unaligned I420 frames; and at 1080p on the inputs that stress the
+counters: flat-colour frames (every count of a channel in one bin) and
+frames whose values all fall in bin 15 (for I420, values past 255, which
+the kernel counts apart and folds into bin 15). Inputs are made from a
+seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -66,3 +71,111 @@ def test_histogram_op_on_device_chunk(cuda_device):
     assert got.device.type == "cuda"
     want = H.hist_rgb_plain(torch.from_numpy(frames), 40 * 52 * 3, 3)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("c", [2, 5, 6])
+def test_hist_rgb_kernel_other_channel_counts(cuda_device, c):
+    t, h, w = 2, 23, 41
+    frames = np.random.default_rng(8).integers(0, 256, (t, h, w, c),
+                                               np.uint8)
+    x = torch.from_numpy(frames).to(cuda_device)
+    assert torch.equal(H.hist_rgb(x, h * w * c, c).cpu(),
+                       H.hist_rgb_plain(x, h * w * c, c).cpu())
+
+
+def _unaligned(flat2d):
+    """The same frames, contiguous from one byte past a 16-byte boundary:
+    the kernels take their byte-load path."""
+    buf = torch.zeros(flat2d.numel() + 16, dtype=torch.uint8,
+                      device=flat2d.device)
+    out = buf[1:flat2d.numel() + 1].view(flat2d.shape)
+    out.copy_(flat2d)
+    return out
+
+
+def test_hist_rgb_vector_path_matches_byte_path(cuda_device):
+    """c == 3 at 1080p: 16-byte loads of aligned frames against the
+    guarded byte loads of the same frames shifted by one byte."""
+    t, h, w = 2, 1080, 1920
+    frames = np.random.default_rng(9).integers(0, 256, (t, h * w * 3),
+                                               np.uint8)
+    x = torch.from_numpy(frames).to(cuda_device)
+    got = H.hist_rgb(x, h * w * 3, 3)
+    assert torch.equal(got, H.hist_rgb(_unaligned(x), h * w * 3, 3))
+    assert torch.equal(got.cpu(), H.hist_rgb_plain(x, h * w * 3, 3).cpu())
+
+
+def _i420_flat(t, h, w, yuv):
+    planes = np.empty((t, h * w * 3 // 2), np.uint8)
+    planes[:, :h * w] = yuv[0]
+    planes[:, h * w:h * w * 5 // 4] = yuv[1]
+    planes[:, h * w * 5 // 4:] = yuv[2]
+    return planes
+
+
+@pytest.mark.parametrize("kind", ["flat", "bin15"])
+def test_hist_rgb_kernel_counter_stress_1080p(cuda_device, kind):
+    t, h, w = 2, 1080, 1920
+    if kind == "flat":
+        frames = np.empty((t, h, w, 3), np.uint8)
+        frames[:] = (200, 40, 40)
+    else:
+        frames = np.random.default_rng(10).integers(240, 256, (t, h, w, 3),
+                                                    np.uint8)
+    x = torch.from_numpy(FrameChunk.from_hwc(frames).flat).to(cuda_device)
+    got = H.hist_rgb(x, h * w * 3, 3).cpu()
+    assert torch.equal(got, H.hist_rgb_plain(x, h * w * 3, 3).cpu())
+    if kind == "bin15":
+        assert (got[:, :, 15] == h * w).all()
+
+
+@pytest.mark.parametrize("kind", ["flat", "bin15"])
+def test_hist_i420_kernel_counter_stress_1080p(cuda_device, kind):
+    t, h, w = 2, 1080, 1920
+    if kind == "flat":  # red, limited range BT.601
+        planes = _i420_flat(t, h, w, (81, 90, 240))
+    else:  # near-white luma, grey chroma: R, G, B all >= 255
+        rng = np.random.default_rng(11)
+        planes = _i420_flat(t, h, w, (0, 128, 128))
+        planes[:, :h * w] = rng.integers(235, 256, (t, h * w), np.uint8)
+    x = torch.from_numpy(FrameChunk.from_i420(planes, h, w).flat).to(
+        cuda_device)
+    got = H.hist_i420(x, h, w).cpu()
+    assert torch.equal(got, H.hist_i420_plain(x, h, w).cpu())
+    if kind == "bin15":
+        assert (got[:, :, 15] == h * w).all()
+
+
+@pytest.mark.parametrize("h,w", [(34, 18), (64, 1918), (1080, 1918)])
+def test_hist_i420_kernel_ragged_width(cuda_device, h, w):
+    """Widths that are not a multiple of 16 take the guarded byte path."""
+    assert w % 16
+    planes = np.random.default_rng(12).integers(0, 256, (2, h * w * 3 // 2),
+                                                np.uint8)
+    x = torch.from_numpy(FrameChunk.from_i420(planes, h, w).flat).to(
+        cuda_device)
+    for bt709, full_range in COEF_SETS:
+        assert torch.equal(
+            H.hist_i420(x, h, w, full_range, bt709).cpu(),
+            H.hist_i420_plain(x, h, w, full_range, bt709).cpu())
+
+
+def test_hist_i420_kernel_unaligned_frames(cuda_device):
+    t, h, w = 2, 64, 96
+    planes = np.random.default_rng(13).integers(0, 256, (t, h * w * 3 // 2),
+                                                np.uint8)
+    x = torch.from_numpy(planes).to(cuda_device)
+    got = H.hist_i420(_unaligned(x), h, w)
+    assert torch.equal(got, H.hist_i420(x, h, w))
+    assert torch.equal(got.cpu(), H.hist_i420_plain(x, h, w).cpu())
+
+
+def test_kernels_take_one_frame_and_empty_chunks(cuda_device):
+    x = torch.from_numpy(np.random.default_rng(14).integers(
+        0, 256, (1, 37 * 3), np.uint8)).to(cuda_device)
+    assert torch.equal(H.hist_rgb(x, 37 * 3, 3).cpu(),
+                       H.hist_rgb_plain(x, 37 * 3, 3).cpu())
+    before = (H.hist_rgb.launches, H.hist_i420.launches)
+    assert H.hist_rgb(x[:0], 37 * 3, 3).shape == (0, 3, 16)
+    assert H.hist_i420(x[:0], 4, 6).shape == (0, 3, 16)
+    assert (H.hist_rgb.launches, H.hist_i420.launches) == before
