@@ -16,6 +16,11 @@ read rate on them). ``device_ms`` is the kernel's time alone: the card is
 kept busy while the wrapper's host work runs, so only the device's time of
 the call is measured.
 
+Phase 1 also holds the flow kernel ``flow_update`` to its plain version
+(difference 0) in both warp modes, at ragged sizes (odd sides, levels of
+at most 16 rows, a 2-row level) and at the flow path's finest level, a
+32-pair 640x480 chunk, where it times it the same ways.
+
 Phase 2 drives the main path through the public API on the default device:
 ``Client() -> Histogram -> ShotBoundaries -> NamedStream`` over a 1080p,
 480-frame, 24 fps video with cuts at 120, 240 and 360, once with RGB24 and
@@ -26,6 +31,16 @@ itself is covered by the CPU tests. Each run must give
 the boundaries [120, 240, 360], histogram rows equal to the plain version's
 on the same frames, and launches of its kernel.
 
+Phase 3 drives the flow path the same way: ``Client() -> Stride(frame, [2])
+-> OpticalFlow`` at 640x480 over a synthetic texture panning by a known
+whole pixel per frame, with RGB and I420 (grey chroma) ingest. Graph A
+sinks the flow only, so it is stored as float16 (the default steering):
+the stored bytes, the recovered motion (median interior error under 0.15
+px) and (levels + 1) * iters = 12 launches of ``flow_update`` per chunk
+are checked. Graph B sinks ``FlowHistogram`` of the flow, whose rows must
+equal those of the plain versions run on the card over the same frames.
+One chunk's time is split by stage with CUDA events.
+
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
 ``{"kernels": [...]}``, the card's name and power limit from nvidia-smi,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit
@@ -35,6 +50,7 @@ or without the package beside this file, it fails the same way.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -51,6 +67,17 @@ CUTS = (120, 240, 360)
 CHUNK = 64
 COLORS = [(200, 40, 40), (40, 200, 40), (40, 40, 200), (200, 200, 40)]
 BAR = 16  # moving white bar width, px (even: whole chroma columns)
+
+# phase 3: 640x480 texture panning FLOW_MOTION px per frame, every
+# FLOW_STRIDE-th frame sampled, FLOW_CHUNK pairs per chunk
+FLOW_FRAMES, FLOW_H, FLOW_W = 128, 480, 640
+FLOW_STRIDE, FLOW_CHUNK = 2, 32
+FLOW_MOTION = (1, 1)  # (x, y) px per source frame
+FLOW_LAUNCHES_PER_CHUNK = 12  # (levels + 1) * iters at the defaults
+# flow_update per pixel: r0 20 B + r1 20 B + flow 8 B + out 20 B, and the
+# float32 operations of csrc/flow.cu's kernel per warp mode
+FLOW_BYTES_PER_PX = 68
+FLOW_OPS_PER_PX = {16: 116, 0: 107}
 
 # H100 SXM data sheet peaks: HBM3 bandwidth and FP32 (non-tensor-core) rate
 HBM_BYTES_PER_S = 3.35e12
@@ -263,6 +290,69 @@ def check_kernels():
     return records
 
 
+def check_flow_update():
+    """-> the flow_update record at the flow path's finest level (32 pairs
+    of 640x480, warp_px 16), after holding the kernel to its plain version
+    in both warp modes at ragged sizes and at that level."""
+    import torch
+
+    from scannertools_tpu_torch.ops import optical_flow as OF
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0
+
+    def inputs(t, h, w, spread):
+        r0, r1 = (torch.randn((t, h, w, 5), device="cuda", generator=gen)
+                  * 10 for _ in range(2))
+        flow = torch.randn((t, h, w, 2), device="cuda", generator=gen) \
+            * spread
+        return r0, r1, flow
+
+    record = {}
+    shapes = [(2, 33, 47), (3, 15, 17), (2, 16, 9), (1, 2, 5), (2, 61, 81),
+              (FLOW_CHUNK, FLOW_H, FLOW_W)]
+    for warp_px in (16, 0):
+        for t, h, w in shapes:
+            # flow within a few px (as the pyramid gives it) and past
+            # warp_px and the frame (every clamp taken)
+            for spread in (2.0, 25.0):
+                args = inputs(t, h, w, spread)
+                got = OF.flow_update(*args, warp_px)
+                want = OF.flow_update_plain(*args, warp_px)
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                log({"check": "flow_update", "t": t, "h": h, "w": w,
+                     "warp_px": warp_px, "flow_spread": spread,
+                     "max_abs_err": err})
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"flow_update disagrees with its plain version at "
+                        f"{(t, h, w)}, warp_px {warp_px}: max abs diff "
+                        f"{err}")
+            if (t, h, w) != (FLOW_CHUNK, FLOW_H, FLOW_W):
+                continue
+            args = inputs(t, h, w, 2.0)
+            npx = t * h * w
+            bound, by = bound_ms(npx * FLOW_BYTES_PER_PX,
+                                 npx * FLOW_OPS_PER_PX[warp_px])
+            timing = {
+                "ms": time_ms(lambda: OF.flow_update(*args, warp_px)),
+                "device_ms": time_ms(lambda: OF.flow_update(*args, warp_px),
+                                     fence=True),
+                "plain_ms": time_ms(
+                    lambda: OF.flow_update_plain(*args, warp_px), reps=5,
+                    warm=1),
+                "bound_ms": bound, "bound_by": by}
+            log({"timing": "flow_update", "warp_px": warp_px,
+                 "shape": [t, h, w], **timing})
+            if warp_px == 16:
+                record = timing
+            del args
+    torch.cuda.synchronize()
+    record["max_abs_err"] = worst
+    return record
+
+
 # ------------------------------------------------------------ phase 2
 
 
@@ -336,24 +426,24 @@ class SyntheticDecoder:
         pass
 
 
-def synthetic_stream_class():
+def synthetic_stream_class(n: int, h: int, w: int, make_decoder):
     import scannertools_tpu_torch as st
     from scannertools_tpu_torch.io.video import VideoMetadata
 
     class SyntheticVideoStream(st.NamedVideoStream):
-        """A NamedVideoStream whose decoder is SyntheticDecoder."""
+        """A NamedVideoStream whose decoder is ``make_decoder()``."""
 
         def __len__(self) -> int:
-            return N_FRAMES
+            return n
 
         def video_path(self) -> str:
             return "synthetic"
 
         def metadata(self) -> VideoMetadata:
-            return VideoMetadata("synthetic", N_FRAMES, FPS, WIDTH, HEIGHT)
+            return VideoMetadata("synthetic", n, FPS, w, h)
 
-        def decoder(self) -> SyntheticDecoder:
-            return SyntheticDecoder(N_FRAMES, HEIGHT, WIDTH)
+        def decoder(self):
+            return make_decoder()
 
     return SyntheticVideoStream
 
@@ -387,7 +477,9 @@ def run_pipeline(db: str):
     import scannertools_tpu_torch as st
     from scannertools_tpu_torch.ops import histogram as H
 
-    stream_cls = synthetic_stream_class()
+    stream_cls = synthetic_stream_class(
+        N_FRAMES, HEIGHT, WIDTH,
+        lambda: SyntheticDecoder(N_FRAMES, HEIGHT, WIDTH))
     launches = {}
     for ingest in ("rgb", "i420"):
         sc = st.Client(db_path=os.path.join(db, ingest))
@@ -434,6 +526,233 @@ def run_pipeline(db: str):
     return launches
 
 
+# ------------------------------------------------------------ phase 3
+
+
+class TextureDecoder:
+    """The decoder interface the executor calls: a smoothed random grey
+    texture under a FLOW_W x FLOW_H window, the content moving by
+    FLOW_MOTION px per frame (so the true flow between frames i and j is
+    (j - i) * FLOW_MOTION). I420 frames carry the grey as luma over grey
+    chroma."""
+
+    i420_supported = True
+    i420_full_range = False
+    i420_bt709 = False
+
+    def __init__(self, n: int, h: int, w: int, seed: int = 0):
+        self.n, self.h, self.w = n, h, w
+        mx, my = FLOW_MOTION
+        # three 7-px box passes (about a Gaussian of sigma 3.5) take 21 px
+        noise = np.random.default_rng(seed).random(
+            (h + n * abs(my) + 21, w + n * abs(mx) + 21))
+        for axis in (0, 1, 0, 1, 0, 1):
+            c = np.cumsum(noise, axis=axis)
+            noise = (np.take(c, range(7, c.shape[axis]), axis=axis)
+                     - np.take(c, range(0, c.shape[axis] - 7), axis=axis))
+        lo, hi = noise.min(), noise.max()
+        self._tex = ((noise - lo) / (hi - lo) * 255).astype(np.uint8)
+
+    def _gray(self, i: int):
+        mx, my = FLOW_MOTION
+        y0 = (self.n - i) * my if my > 0 else i * -my
+        x0 = (self.n - i) * mx if mx > 0 else i * -mx
+        return self._tex[y0:y0 + self.h, x0:x0 + self.w]
+
+    def read_frames(self, rows, out=None):
+        if out is None:
+            out = np.empty((len(rows), self.h, self.w, 3), np.uint8)
+        for k, i in enumerate(rows):
+            out[k] = self._gray(i)[..., None]
+        return out
+
+    def read_frames_i420(self, rows, out=None):
+        h, w = self.h, self.w
+        if out is None:
+            out = np.empty((len(rows), h * w * 3 // 2), np.uint8)
+        for k, i in enumerate(rows):
+            out[k, :h * w] = self._gray(i).reshape(-1)
+            out[k, h * w:] = 128
+        return out
+
+    def close(self) -> None:
+        pass
+
+
+def flow_sampled_rows() -> list:
+    return list(range(0, FLOW_FRAMES, FLOW_STRIDE))
+
+
+def plain_flow_histograms():
+    """[rows, 2, 64] FlowHistogram rows of the texture (RGB), chunked as
+    the executor chunks them, with every flow_update replaced by its plain
+    version, on the card."""
+    from unittest import mock
+
+    import torch
+
+    from scannertools_tpu_torch.ops import imgproc as IP
+    from scannertools_tpu_torch.ops import optical_flow as OF
+    from scannertools_tpu_torch.utils.framechunk import FrameChunk
+
+    dec = TextureDecoder(FLOW_FRAMES, FLOW_H, FLOW_W)
+    rows = flow_sampled_rows()
+    out = []
+    OF.flow_update.launches = 0
+    with mock.patch.object(OF, "_update_matrices", OF.flow_update_plain):
+        for a in range(0, len(rows), FLOW_CHUNK):
+            b = min(a + FLOW_CHUNK, len(rows))
+            src = [rows[min(p, len(rows) - 1)] for p in range(a, b + 1)]
+            chunk = FrameChunk.from_hwc(dec.read_frames(src)).device("cuda")
+            flow = OF.optical_flow(None, chunk)
+            out.append(IP.flow_histogram(None, flow))
+    if OF.flow_update.launches:
+        raise AssertionError("the plain flow launched the kernel")
+    return torch.cat(out).cpu().numpy()
+
+
+def flow_stage_ms():
+    """One FLOW_CHUNK-pair 640x480 chunk through farneback_pairs, each
+    stage bracketed by CUDA events on the compute stream: -> {stage: ms
+    summed over its calls, "chunk": ms of the whole call, "kernels_ms":
+    the device time of its kernels by torch.profiler}. The flow must equal
+    that of an untimed call."""
+    from unittest import mock
+
+    import torch
+
+    from scannertools_tpu_torch.ops import optical_flow as OF
+
+    dec = TextureDecoder(FLOW_FRAMES, FLOW_H, FLOW_W)
+    rows = flow_sampled_rows()[:FLOW_CHUNK + 1]
+    frames = torch.from_numpy(dec.read_frames(rows)).cuda()
+    gray = OF._rgb2gray_u8(frames)[..., 0].to(torch.float32)
+    g0, g1 = gray[:-1], gray[1:]
+    want = OF.farneback_pairs(g0, g1)  # warm: index maps, taps
+    # resize_hw: the pyramid's resizes and the flow's upsample
+    stages = {"_sepconv": "pyramid", "resize_hw": "pyramid",
+              "_poly_exp": "poly_exp",
+              "_update_matrices": "flow_update", "_box_blur": "box_blur",
+              "_solve_flow": "solve_flow"}
+    marks = []
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((stage, start, end))
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for name, stage in stages.items():
+            stack.enter_context(mock.patch.object(
+                OF, name, timed(stage, getattr(OF, name))))
+        torch.cuda.synchronize()
+        got = timed("chunk", OF.farneback_pairs)(g0, g1)
+        torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("the timed flow differs from the untimed one")
+    out = dict.fromkeys(["pyramid", "poly_exp", "flow_update", "box_blur",
+                         "solve_flow", "chunk"], 0.0)
+    for stage, start, end in marks:
+        out[stage] += start.elapsed_time(end)
+    # the card's busy time in the chunk: the kernels' own times, traced
+    # in a further call (the tracer slows the host, not the kernels)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        OF.farneback_pairs(g0, g1)
+        torch.cuda.synchronize()
+    # the device-side entries only: an operator's row repeats the device
+    # time of the kernels it launched
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out["kernels_ms"] = busy if busy > 0 else "not measured"
+    out["pairs"] = FLOW_CHUNK
+    return out
+
+
+def run_flow_pipeline(db: str):
+    """-> flow_update launches in graph A's RGB run; every check raises."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.ops import optical_flow as OF
+
+    stream_cls = synthetic_stream_class(
+        FLOW_FRAMES, FLOW_H, FLOW_W,
+        lambda: TextureDecoder(FLOW_FRAMES, FLOW_H, FLOW_W))
+    n = len(flow_sampled_rows())
+    chunks = -(-n // FLOW_CHUNK)
+    truth = np.array(FLOW_MOTION, np.float32) * FLOW_STRIDE
+    runs = [("A", "rgb"), ("A", "i420"), ("B", "rgb")]
+    launches = {}
+    for graph, ingest in runs:
+        sc = st.Client(db_path=os.path.join(db, graph + ingest))
+        video = stream_cls(sc, "texture")
+        frames = sc.streams.Stride(sc.io.Input([video]), [FLOW_STRIDE])
+        flow = sc.ops.OpticalFlow(frames=frames)
+        col = flow if graph == "A" else sc.ops.FlowHistogram(flow=flow)
+        out = st.NamedStream(sc, "flow" if graph == "A" else "flowhist")
+        perf = st.PerfParams.manual(work_packet_size=FLOW_CHUNK,
+                                    ingest=ingest)
+
+        OF.flow_update.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output(col, [out]), perf,
+               cache_mode=st.CacheMode.Overwrite)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[graph + ingest] = OF.flow_update.launches
+        result = {"run": "flow_pipeline", "graph": graph, "ingest": ingest,
+                  "rows": n, "height": FLOW_H, "width": FLOW_W,
+                  "seconds": seconds, "rows_per_s": n / seconds,
+                  "launches": {"flow_update": OF.flow_update.launches},
+                  "totals_s": sc.profiler.totals()}
+        if OF.flow_update.launches != chunks * FLOW_LAUNCHES_PER_CHUNK:
+            raise AssertionError(
+                f"flow {graph} {ingest}: {OF.flow_update.launches} launches "
+                f"of flow_update, want {chunks} x {FLOW_LAUNCHES_PER_CHUNK}")
+        if graph == "A":
+            stored = sum(len(b) for b in out.load_bytes(range(n)))
+            flows = np.stack(list(out.load()))
+            inner = flows[:-1, 32:-32, 32:-32]
+            err = float(np.median(np.linalg.norm(inner - truth, axis=-1)))
+            result.update(stored_bytes=stored, median_err_px=err,
+                          last_row_max=float(np.abs(flows[-1]).max()))
+            log(result)
+            want_bytes = n * (8 + FLOW_H * FLOW_W * 2 * 2)  # float16
+            if stored != want_bytes:
+                raise AssertionError(f"flow {ingest}: {stored} bytes "
+                                     f"stored, want {want_bytes}")
+            if flows.shape != (n, FLOW_H, FLOW_W, 2) or \
+                    flows.dtype != np.float32 or \
+                    not np.isfinite(flows).all():
+                raise AssertionError(f"flow {ingest}: {flows.shape} "
+                                     f"{flows.dtype} rows")
+            if not err < 0.15:
+                raise AssertionError(f"flow {ingest}: median error {err} "
+                                     f"px against {truth.tolist()}")
+        else:
+            rows = np.stack(list(out.load()))
+            want = plain_flow_histograms()
+            result["rows_equal_plain"] = bool(
+                rows.shape == want.shape and (rows == want).all())
+            log(result)
+            if not result["rows_equal_plain"]:
+                raise AssertionError("FlowHistogram rows differ from the "
+                                     "plain versions'")
+        print(sc.summarize(), flush=True)
+    log({"flow_stages_ms": flow_stage_ms(), "shape": [FLOW_CHUNK, FLOW_H,
+                                                      FLOW_W]})
+    return launches["Argb"]
+
+
 # ------------------------------------------------------------ main
 
 
@@ -451,10 +770,12 @@ def main() -> int:
          "seconds": time.perf_counter() - t0})
 
     records = check_kernels()
+    records["flow_update"] = check_flow_update()
 
     db = tempfile.mkdtemp(prefix="chip_smoke_db_")
     try:
         launches = run_pipeline(db)
+        flow_launches = run_flow_pipeline(db)
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
@@ -468,6 +789,11 @@ def main() -> int:
          "source": "scannertools_tpu_torch/kernels/csrc/histogram.cu",
          "replaces": "scannertools_tpu/ops/histogram.py:260",
          "launches": launches["i420"]["hist_i420"], **records["hist_i420"],
+         "library_ms": None},
+        {"name": "flow_update", "route": "cuda",
+         "source": "scannertools_tpu_torch/kernels/csrc/flow.cu",
+         "replaces": "scannertools_tpu/ops/optical_flow.py:244",
+         "launches": flow_launches, **records["flow_update"],
          "library_ms": None},
     ]
     log({"kernels": kernels})

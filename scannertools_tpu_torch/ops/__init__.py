@@ -3,4 +3,7 @@
 scannertools_infra/__init__.py:90-100)."""
 
 from . import histogram  # noqa: F401
+from . import imgproc  # noqa: F401
+from . import misc  # noqa: F401
+from . import optical_flow  # noqa: F401
 from . import shot_detection  # noqa: F401

@@ -5,8 +5,10 @@ four I420 coefficient sets, I420 widths that are not a multiple of 16 and
 unaligned I420 frames; and at 1080p on the inputs that stress the
 counters: flat-colour frames (every count of a channel in one bin) and
 frames whose values all fall in bin 15 (for I420, values past 255, which
-the kernel counts apart and folds into bin 15). Inputs are made from a
-seed with numpy.
+the kernel counts apart and folds into bin 15). The flow update kernel is
+held to its plain version in both warp modes at ragged sizes: odd sides,
+levels of at most 16 rows (where the shift-warp's bound is below
+warp_px) and a 2-row level. Inputs are made from a seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from scannertools_tpu_torch.ops import histogram as H
+from scannertools_tpu_torch.ops import optical_flow as OF
 from scannertools_tpu_torch.utils.framechunk import FrameChunk
 
 pytestmark = pytest.mark.cuda
@@ -179,3 +182,42 @@ def test_kernels_take_one_frame_and_empty_chunks(cuda_device):
     assert H.hist_rgb(x[:0], 37 * 3, 3).shape == (0, 3, 16)
     assert H.hist_i420(x[:0], 4, 6).shape == (0, 3, 16)
     assert (H.hist_rgb.launches, H.hist_i420.launches) == before
+
+
+def _flow_inputs(t, h, w, seed):
+    rng = np.random.default_rng(seed)
+    r0 = rng.normal(0, 10, (t, h, w, 5)).astype(np.float32)
+    r1 = rng.normal(0, 10, (t, h, w, 5)).astype(np.float32)
+    # displacements past warp_px and past the frame: every clamp is taken
+    flow = rng.normal(0, 12, (t, h, w, 2)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (r0, r1, flow)]
+
+
+@pytest.mark.parametrize("warp_px", [16, 0, 3])
+@pytest.mark.parametrize("t,h,w", [(2, 33, 47), (3, 15, 17), (1, 2, 5),
+                                   (2, 61, 80)])
+def test_flow_update_kernel_matches_plain(cuda_device, warp_px, t, h, w):
+    args = [a.to(cuda_device) for a in _flow_inputs(t, h, w, 15)]
+    before = OF.flow_update.launches
+    got = OF.flow_update(*args, warp_px)
+    assert OF.flow_update.launches == before + 1
+    want = OF.flow_update_plain(*args, warp_px)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), OF.flow_update_plain(
+        *_flow_inputs(t, h, w, 15), warp_px))
+
+
+def test_flow_update_kernel_refuses_bad_inputs(cuda_device):
+    r0, r1, flow = [a.to(cuda_device) for a in _flow_inputs(2, 9, 11, 16)]
+    before = OF.flow_update.launches
+    with pytest.raises(TypeError):
+        OF.flow_update(r0.double(), r1, flow)
+    with pytest.raises(ValueError):
+        OF.flow_update(r0, r1, flow.transpose(1, 2).contiguous()
+                       .transpose(1, 2))
+    with pytest.raises(ValueError):
+        OF.flow_update(r0, r1.cpu(), flow)
+    assert OF.flow_update.launches == before
+    empty = OF.flow_update(r0[:0], r1[:0], flow[:0])
+    assert empty.shape == (0, 9, 11, 5)
+    assert OF.flow_update.launches == before
