@@ -41,6 +41,32 @@ are checked. Graph B sinks ``FlowHistogram`` of the flow, whose rows must
 equal those of the plain versions run on the card over the same frames.
 One chunk's time is split by stage with CUDA events.
 
+Phase 1 holds ``nms`` (kernels/csrc/nms.cu) to its plain version
+(difference 0) on seeded box clouds at K = 1, 5, 96, 128, 256 and 1280,
+both overlap modes, 16-frame batches with tied scores and an all-invalid
+frame, max_out below, at and above K, and the alternating chain; and
+``crop_and_resize`` (kernels/csrc/crop_resize.cu) at 24, 48, 160 and 227
+px outputs over mixed, upsampled, downsampled, edge and degenerate boxes
+from 16 frames of 640x480 in one launch. Each is timed at the face path's
+calls: ``nms`` at the cross-scale call of a 16-frame chunk (the record),
+the per-scale, R-Net and O-Net calls; ``crop_and_resize`` at FaceNet's 512
+crops of 160x160 (16 frames at the budget of 32 faces that phase 4 passes;
+the record; ``library_ms`` is ``F.grid_sample`` at the same sample
+positions, checked to agree), gender's, R-Net's and O-Net's.
+
+Phase 4 drives the face suite at 640x480: 32 frames of a synthetic texture
+with drifting bright blobs, chunks of 16, RGB ingest, the port's seeded
+weights written by its ``save_params`` and passed as ``weights_path``, and
+thresholds (0.5, 0.5, 0.5) (the reference's keep nothing with these
+weights). Four graphs in turn through ``Client.run``: ``MTCNNDetectFaces``,
+``EmbedFaces(bboxes=faces)``, ``DetectGender(bboxes=faces)`` and
+``EmbedFaces`` over the stored faces (``BboxesToPadded``). Their stored rows
+must equal those of the same graphs with both kernels patched to their
+plain versions on the card; most frames must have faces, embeddings unit
+norm within 1e-5, the launches 8 ``nms`` and 2-3 crops a chunk. FaceNet
+embeddings and gender logits of seeded crops on the card are held to the
+CPU's, and one chunk's time is split by stage with CUDA events.
+
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
 ``{"kernels": [...]}``, the card's name and power limit from nvidia-smi,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit
@@ -52,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -78,6 +105,17 @@ FLOW_LAUNCHES_PER_CHUNK = 12  # (levels + 1) * iters at the defaults
 # float32 operations of csrc/flow.cu's kernel per warp mode
 FLOW_BYTES_PER_PX = 68
 FLOW_OPS_PER_PX = {16: 116, 0: 107}
+
+# phase 4: the face suite on FACE_FRAMES frames of FACE_W x FACE_H in chunks
+# of FACE_CHUNK
+FACE_FRAMES, FACE_H, FACE_W, FACE_CHUNK = 32, 480, 640, 16
+# the port's seeded weights score most P-Net cells and MTCNN faces of these
+# frames between 0.5 and 0.6 (the reference's 0.45, 0.6, 0.7 keep none):
+# 0.5 at every stage keeps rows at each one (12-17 faces a frame)
+FACE_THRESHOLDS = (0.5, 0.5, 0.5)
+# card against CPU, float32 nets: largest difference over largest value
+CARD_CPU_RTOL = 1e-4
+CROP_LIBRARY_ATOL = 0.1
 
 # H100 SXM data sheet peaks: HBM3 bandwidth and FP32 (non-tensor-core) rate
 HBM_BYTES_PER_S = 3.35e12
@@ -349,6 +387,227 @@ def check_flow_update():
                 record = timing
             del args
     torch.cuda.synchronize()
+    record["max_abs_err"] = worst
+    return record
+
+
+def box_cloud(rng, t: int, k: int, span: float = 600.0):
+    """[t, k, 4] float32 pixel boxes of 8-120 px around seeded centres."""
+    c = rng.uniform(0, span, (t, k, 2))
+    wh = rng.uniform(8, 120, (t, k, 2))
+    return np.concatenate([c - wh / 2, c + wh / 2], axis=-1).astype(
+        np.float32)
+
+
+def nms_bound(boxes, scores, max_out: int, score_thresh: float) -> tuple:
+    """The bound of one nms call on these inputs: boxes and scores read,
+    boxes, scores and valid written once; the operations its data needs:
+    K * ceil(log2 K) comparisons a frame for a stable sort of the scores
+    (what the function needs, not the kernel's K * K rank sort), 5 a box
+    for its area and 14 an overlap (4 max/min, 2 differences, 2 clamps, a
+    product, a sum and a difference, a division, 2 comparisons) for each
+    pair after a valid row."""
+    t, k = scores.shape
+    nbytes = t * k * (16 + 4) + t * max_out * (16 + 4 + 1)
+    # valid rows lead the score order: the v of a frame pair with the rows
+    # after them
+    per_frame_valid = (scores > score_thresh).sum(dim=1).tolist()
+    pairs = sum(v * (k - 1) - v * (v - 1) // 2 for v in per_frame_valid)
+    ops = t * (k * math.ceil(math.log2(k)) + 5 * k) + 14 * pairs
+    return bound_ms(nbytes, ops)
+
+
+def check_nms():
+    """-> the nms record at the main path's largest call (the cross-scale
+    NMS of a 16-frame chunk: [16, 256] boxes, max_out 256), after holding
+    the kernel to its plain version (difference 0) on seeded clouds."""
+    import torch
+
+    from scannertools_tpu_torch.models import common as MC
+
+    rng = np.random.default_rng(2)
+    worst = 0.0
+
+    def check(boxes, scores, iou, max_out, score_thresh, mode, **tags):
+        nonlocal worst
+        b = torch.from_numpy(boxes).cuda()
+        s = torch.from_numpy(scores).cuda()
+        got = MC.nms(b, s, iou, max_out, score_thresh, mode)
+        want = MC.nms_plain(b, s, iou, max_out, score_thresh, mode)
+        err = max(float((g.float() - w.float()).abs().max())
+                  if g.numel() else 0.0 for g, w in zip(got, want))
+        worst = max(worst, err)
+        log({"check": "nms", "t": int(scores.shape[0]),
+             "k": int(scores.shape[1]), "max_out": max_out, "mode": mode,
+             "kept": int(got[2].sum()), "max_abs_err": err, **tags})
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"nms disagrees with its plain version at "
+                                 f"{tags}, k {scores.shape}: {err}")
+
+    for mode in ("union", "min"):
+        for k in (1, 5, 96, 128, 256, 1280):
+            t = 16 if k <= 256 else 2
+            boxes = box_cloud(rng, t, k)
+            scores = rng.uniform(0, 1, (t, k)).astype(np.float32)
+            scores[:, ::5] = 0.5          # ties
+            scores[0] = 0.0               # an all-invalid frame
+            iou = 0.7 if mode == "union" else 0.3
+            for max_out in sorted({max(1, k // 2), k, k + 7}):
+                check(boxes, scores, iou, max_out, 0.0, mode)
+    # the alternating chain: box i overlaps only box i + 1 (IoU 0.25)
+    n = 64
+    chain = np.stack([np.arange(n) * 6.0, np.zeros(n),
+                      np.arange(n) * 6.0 + 10, np.full(n, 10.0)],
+                     axis=1).astype(np.float32)
+    check(np.stack([chain, chain]), np.stack(
+        [np.linspace(1.0, 0.5, n), np.full(n, 0.5)]).astype(np.float32),
+        0.2, n, 0.0, "union", case="chain")
+
+    timings = {}
+    for name, k, max_out, mode in (("cross_scale", 256, 256, "union"),
+                                   ("per_scale", 128, 128, "union"),
+                                   ("rnet", 96, 96, "union"),
+                                   ("onet", 64, 32, "min")):
+        boxes = torch.from_numpy(box_cloud(rng, FACE_CHUNK, k)).cuda()
+        scores = torch.from_numpy(rng.uniform(
+            0, 1, (FACE_CHUNK, k)).astype(np.float32)).cuda()
+        bound, by = nms_bound(boxes, scores, max_out, 0.0)
+        timings[name] = {
+            "ms": time_ms(lambda: MC.nms(boxes, scores, 0.7, max_out, 0.0,
+                                         mode)),
+            "device_ms": time_ms(lambda: MC.nms(boxes, scores, 0.7, max_out,
+                                                0.0, mode), fence=True),
+            "plain_ms": time_ms(lambda: MC.nms_plain(
+                boxes, scores, 0.7, max_out, 0.0, mode), reps=5, warm=1),
+            "bound_ms": bound, "bound_by": by}
+        log({"timing": "nms", "call": name, "shape": [FACE_CHUNK, k],
+             "max_out": max_out, "mode": mode, **timings[name]})
+    torch.cuda.synchronize()
+    record = dict(timings["cross_scale"])
+    record["max_abs_err"] = worst
+    return record
+
+
+def crop_grid_sample(images, boxes, oh: int, ow: int):
+    """The library yardstick of crop_and_resize: ``F.grid_sample``
+    (bilinear, align_corners=True) at the kernel's clamped sample
+    positions, for K boxes a frame in frame order (boxes [T, K, 4]) ->
+    [T * K, oh, ow, C]. Only the grid_sample call is timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from scannertools_tpu_torch.models import common as MC
+
+    t, h, w, c = images.shape
+    k = boxes.shape[1]
+    flat = boxes.reshape(t * k, 4)
+    ys = MC._sample_positions(flat[:, 1], flat[:, 3], oh, h)
+    xs = MC._sample_positions(flat[:, 0], flat[:, 2], ow, w)
+    gy = (ys / (h - 1) * 2 - 1)[:, :, None].expand(t * k, oh, ow)
+    gx = (xs / (w - 1) * 2 - 1)[:, None, :].expand(t * k, oh, ow)
+    grid = torch.stack([gx, gy], dim=-1).reshape(t, k * oh, ow, 2)
+    inp = images.permute(0, 3, 1, 2).contiguous()
+
+    def call():
+        return F.grid_sample(inp, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    out = call().reshape(t, c, k, oh, ow).permute(0, 2, 3, 4, 1)
+    return out.reshape(t * k, oh, ow, c), call
+
+
+def crop_bound(images, boxes, oh: int, ow: int) -> tuple:
+    """Bytes: the crops written once, the boxes and frame indices read, and
+    the frame pixels inside each (clamped) box read once; operations: 9 a
+    value (two y-lerps and an x-lerp) and 26 a pixel for its two sample
+    positions and four weights."""
+    _, h, w, c = images.shape
+    b = boxes.reshape(-1, 4).cpu().numpy().astype(np.float64)
+    x1, x2 = np.clip(b[:, 0], 0, w - 1), np.clip(b[:, 2], 0, w - 1)
+    y1, y2 = np.clip(b[:, 1], 0, h - 1), np.clip(b[:, 3], 0, h - 1)
+    area = (np.floor(np.maximum(x2 - x1, 0)) + 2) * \
+        (np.floor(np.maximum(y2 - y1, 0)) + 2)
+    n_out = b.shape[0] * oh * ow
+    nbytes = n_out * c * 4 + b.shape[0] * (16 + 8) + float(
+        np.minimum(area, oh * ow * 4).sum()) * c * 4
+    return bound_ms(nbytes, n_out * (9 * c + 26))
+
+
+def check_crop():
+    """-> the crop_and_resize record at FaceNet's crop of a 16-frame 640x480
+    chunk (MAX_FACES boxes a frame, the budget phase 4 passes, 160x160),
+    after holding the kernel to its plain version (difference 0) at the
+    four output sizes of the face path."""
+    import torch
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.ops.faces import MAX_FACES
+
+    rng = np.random.default_rng(3)
+    worst = 0.0
+    frames = torch.from_numpy(rng.uniform(
+        0, 255, (FACE_CHUNK, FACE_H, FACE_W, 3)).astype(np.float32)).cuda()
+    for size in (24, 48, 160, 227):
+        for kind in ("mixed", "small", "large", "edge", "degenerate"):
+            b = 64
+            if kind == "small":    # upsampled
+                boxes = box_cloud(rng, 1, b, 600.0)[0]
+                boxes[:, 2:] = boxes[:, :2] + rng.uniform(2, size / 2, (b, 2))
+            elif kind == "large":  # downsampled
+                boxes = box_cloud(rng, 1, b, 600.0)[0]
+                boxes[:, 2:] = boxes[:, :2] + rng.uniform(size, 470, (b, 2))
+            elif kind == "edge":   # on and past the frame's edges
+                boxes = box_cloud(rng, 1, b, 600.0)[0]
+                boxes[::2, :2] -= 100
+                boxes[1::2, 2:] += 200
+            elif kind == "degenerate":
+                boxes = box_cloud(rng, 1, b, 600.0)[0]
+                boxes[:, 2] = boxes[:, 0] - rng.uniform(0, 5, b)
+            else:
+                boxes = box_cloud(rng, 1, b, 600.0)[0]
+            fi = torch.from_numpy(rng.integers(0, FACE_CHUNK, b)).cuda()
+            bt = torch.from_numpy(boxes).cuda()
+            got = MC.crop_and_resize(frames, bt, (size, size), fi)
+            want = MC.crop_and_resize_plain(frames, bt, (size, size), fi)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            log({"check": "crop_and_resize", "size": size, "boxes": kind,
+                 "n": b, "max_abs_err": err})
+            if not torch.equal(got, want):
+                raise AssertionError(f"crop_and_resize disagrees with its "
+                                     f"plain version: {size} {kind}: {err}")
+
+    timings = {}
+    for name, k, size in (("facenet", MAX_FACES, 160),
+                          ("gender", MAX_FACES, 227),
+                          ("rnet", 96, 24), ("onet", 64, 48)):
+        boxes = torch.from_numpy(box_cloud(rng, FACE_CHUNK, k)).cuda()
+        fi = torch.arange(FACE_CHUNK).cuda().repeat_interleave(k)
+        flat = boxes.reshape(-1, 4).contiguous()
+        lib_out, lib_call = crop_grid_sample(frames, boxes, size, size)
+        got = MC.crop_and_resize(frames, flat, (size, size), fi)
+        lib_err = float((lib_out - got).abs().max())
+        # the positions' round trip through [-1, 1] moves a sample by a few
+        # float32 ulps of 640 px (6.1e-5 each), times pixel steps up to 255
+        if not lib_err < CROP_LIBRARY_ATOL:
+            raise AssertionError(f"grid_sample and crop_and_resize differ "
+                                 f"by {lib_err} at {name}")
+        bound, by = crop_bound(frames, boxes, size, size)
+        timings[name] = {
+            "ms": time_ms(lambda: MC.crop_and_resize(frames, flat,
+                                                     (size, size), fi)),
+            "device_ms": time_ms(lambda: MC.crop_and_resize(
+                frames, flat, (size, size), fi), fence=True),
+            "plain_ms": time_ms(lambda: MC.crop_and_resize_plain(
+                frames, flat, (size, size), fi), reps=5, warm=1),
+            "library_ms": time_ms(lib_call),
+            "library_max_abs_err": lib_err,
+            "bound_ms": bound, "bound_by": by}
+        log({"timing": "crop_and_resize", "call": name,
+             "shape": [FACE_CHUNK * k, size, size, 3], **timings[name]})
+    torch.cuda.synchronize()
+    record = dict(timings["facenet"])
+    del record["library_max_abs_err"]
     record["max_abs_err"] = worst
     return record
 
@@ -753,6 +1012,371 @@ def run_flow_pipeline(db: str):
     return launches["Argb"]
 
 
+# ------------------------------------------------------------ phase 4
+
+
+class FaceDecoder:
+    """The decoder interface the executor calls: a seeded smoothed colour
+    texture with bright elliptic blobs (skin-toned, 40-110 px) drifting
+    across it, FACE_W x FACE_H RGB, drawn once per process (the executor
+    opens a decoder per run)."""
+
+    i420_supported = False
+    _drawn = {}  # (n, h, w, seed) -> [n, h, w, 3] uint8
+
+    def __init__(self, n: int, h: int, w: int, seed: int = 4):
+        key = (n, h, w, seed)
+        if key not in self._drawn:
+            self._drawn[key] = self._draw(n, h, w, seed)
+        self._frames = self._drawn[key]
+
+    @staticmethod
+    def _draw(n: int, h: int, w: int, seed: int):
+        rng = np.random.default_rng(seed)
+        noise = rng.random((h + 21, w + 21, 3))
+        for axis in (0, 1, 0, 1, 0, 1):  # three 7-px box passes
+            c = np.cumsum(noise, axis=axis)
+            noise = (np.take(c, range(7, c.shape[axis]), axis=axis)
+                     - np.take(c, range(0, c.shape[axis] - 7), axis=axis))
+        lo, hi = noise.min(), noise.max()
+        tex = ((noise - lo) / (hi - lo) * 120 + 30).astype(np.float32)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        blobs = [(rng.uniform(60, h - 60), rng.uniform(60, w - 60),
+                  rng.uniform(-3, 3), rng.uniform(-4, 4),
+                  rng.uniform(20, 45), rng.uniform(16, 36),
+                  rng.uniform(170, 250, 3)) for _ in range(5)]
+        frames = np.empty((n, h, w, 3), np.uint8)
+        for i in range(n):
+            f = tex.copy()
+            for cy, cx, vy, vx, ry, rx, colour in blobs:
+                d = ((yy - cy - vy * i) / ry) ** 2 + ((xx - cx - vx * i)
+                                                      / rx) ** 2
+                a = np.exp(-2.0 * d)[..., None]
+                f = f * (1 - a) + colour * a
+            frames[i] = np.clip(f, 0, 255)
+        return frames
+
+    def read_frames(self, rows, out=None):
+        if out is None:
+            out = np.empty((len(rows), *self._frames.shape[1:]), np.uint8)
+        out[:] = self._frames[list(rows)]
+        return out
+
+    def close(self) -> None:
+        pass
+
+
+FACE_GRAPHS = ("faces", "embs", "genders", "embs_padded")
+# launches of each kernel per chunk in each graph: 8 nms (one per pyramid
+# scale at 640x480, then the cross-scale, R-Net and O-Net calls) and 2
+# crops (R-Net, O-Net) in every MTCNN forward, one crop per crop net
+FACE_LAUNCHES_PER_CHUNK = {
+    "faces": {"nms": 8, "crop_and_resize": 2},
+    "embs": {"nms": 8, "crop_and_resize": 3},
+    "genders": {"nms": 8, "crop_and_resize": 3},
+    "embs_padded": {"nms": 0, "crop_and_resize": 1},
+}
+
+
+def write_face_weights(d: str) -> dict:
+    """The port's seeded weights of the three nets, written by the port's
+    save_params in the JAX package's layout -> {model: npz path}."""
+    from scannertools_tpu_torch.models import facenet, gender, mtcnn, weights
+
+    paths = {}
+    for name, lib in (("mtcnn", mtcnn), ("facenet", facenet),
+                      ("gender", gender)):
+        paths[name] = os.path.join(d, f"{name}.npz")
+        weights.save_params(paths[name], lib.to_flax(lib.init_params(0)))
+    return paths
+
+
+def face_graph(sc, stream, name: str, weights: dict, faces_stream=None):
+    """The output column of face graph ``name`` over ``stream``'s frames."""
+    from scannertools_tpu_torch.ops.faces import MAX_FACES
+
+    frame = sc.io.Input([stream])
+    if name == "embs_padded":  # boxes read back from a stream
+        return sc.ops.EmbedFaces(frame=frame,
+                                 bboxes=sc.io.Input([faces_stream]),
+                                 weights_path=weights["facenet"],
+                                 faces_budget=MAX_FACES)
+    faces = sc.ops.MTCNNDetectFaces(frame=frame,
+                                    weights_path=weights["mtcnn"],
+                                    thresholds=FACE_THRESHOLDS)
+    if name == "faces":
+        return faces
+    if name == "embs":
+        return sc.ops.EmbedFaces(frame=frame, bboxes=faces,
+                                 weights_path=weights["facenet"],
+                                 faces_budget=MAX_FACES)
+    return sc.ops.DetectGender(frame=frame, bboxes=faces,
+                               weights_path=weights["gender"],
+                               faces_budget=MAX_FACES)
+
+
+def run_face_graphs(db: str, weights: dict, device: str = "cuda"):
+    """The four face graphs in turn through Client.run, as
+    tests/test_nn_pipeline.py runs them -> ({graph: loaded rows},
+    {graph: launches}, {graph: result line})."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.models import common as MC
+
+    stream_cls = synthetic_stream_class(
+        FACE_FRAMES, FACE_H, FACE_W,
+        lambda: FaceDecoder(FACE_FRAMES, FACE_H, FACE_W))
+    sc = st.Client(db_path=db, device=device)
+    video = stream_cls(sc, "faces_video")
+    rows, launches, results = {}, {}, {}
+    for name in FACE_GRAPHS:
+        out = st.NamedStream(sc, name)
+        col = face_graph(sc, video, name, weights, faces_stream=(
+            st.NamedStream(sc, "faces") if name == "embs_padded" else None))
+        perf = st.PerfParams.manual(work_packet_size=FACE_CHUNK,
+                                    ingest="rgb")
+        MC.nms.launches = MC.crop_and_resize.launches = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output(col, [out]), perf,
+               cache_mode=st.CacheMode.Overwrite)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = {"nms": MC.nms.launches,
+                          "crop_and_resize": MC.crop_and_resize.launches}
+        rows[name] = list(out.load())
+        results[name] = {"run": "face_pipeline", "graph": name,
+                         "frames": FACE_FRAMES, "height": FACE_H,
+                         "width": FACE_W, "seconds": seconds,
+                         "frames_per_s": FACE_FRAMES / seconds,
+                         "launches": launches[name],
+                         "totals_s": sc.profiler.totals()}
+    return rows, launches, results
+
+
+def plain_face_graphs(db: str, weights: dict):
+    """The same graphs on the card with nms and crop_and_resize replaced by
+    their plain versions -> {graph: loaded rows}."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import mtcnn as PM
+    from scannertools_tpu_torch.ops import faces as PFO
+
+    with mock.patch.object(PM, "nms", MC.nms_plain), \
+            mock.patch.object(PM, "crop_and_resize",
+                              MC.crop_and_resize_plain), \
+            mock.patch.object(PFO, "crop_and_resize",
+                              MC.crop_and_resize_plain):
+        rows, launches, _ = run_face_graphs(db, weights)
+    if any(n for lc in launches.values() for n in lc.values()):
+        raise AssertionError(f"the plain face graphs launched kernels: "
+                             f"{launches}")
+    return rows
+
+
+def face_embedding_checks(faces, embs) -> dict:
+    """Unit norm within 1e-5 for each face whose truncated pixel box is not
+    empty, the zero vector for the others (face_embedding.py:70)."""
+    worst, zeros = 0.0, 0
+    for fl, el in zip(faces, embs):
+        if el.shape != (len(fl), 128) or el.dtype != np.float32:
+            raise AssertionError(f"embeddings {el.shape} {el.dtype} for "
+                                 f"{len(fl)} faces")
+        for b, e in zip(fl, el):
+            x1, y1, x2, y2 = (np.trunc(np.float32(v) * np.float32(s))
+                              for v, s in ((b.x1, FACE_W), (b.y1, FACE_H),
+                                           (b.x2, FACE_W), (b.y2, FACE_H)))
+            if x2 > x1 and y2 > y1:
+                worst = max(worst, abs(float(np.linalg.norm(e)) - 1.0))
+            elif e.any():
+                raise AssertionError("a degenerate crop's embedding is not "
+                                     "the zero vector")
+            else:
+                zeros += 1
+    if not worst < 1e-5:
+        raise AssertionError(f"embedding norms off 1 by {worst}")
+    return {"max_norm_err": worst, "zero_rows": zeros}
+
+
+def card_vs_cpu() -> dict:
+    """FaceNet embeddings and gender logits of fixed seeded crops with the
+    port's seeded weights, on the card and on the CPU: no discrete decision
+    intervenes, so this is the nets' float32 agreement (TF32 in cuDNN would
+    show as about 1e-3)."""
+    import torch
+
+    from scannertools_tpu_torch.models import facenet, gender
+
+    rng = np.random.default_rng(6)
+    out = {}
+    for name, lib, size, fn in (("facenet", facenet, 160, facenet.embed),
+                                ("gender", gender, gender.INPUT_SIZE,
+                                 gender.logits)):
+        state = lib.init_params(0)
+        crops = torch.from_numpy(rng.uniform(0, 255, (8, size, size, 3))
+                                 .astype(np.float32))
+        cpu = fn(state, crops)
+        card = fn({k: v.cuda() for k, v in state.items()},
+                  crops.cuda()).cpu()
+        err = float((card - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        out[name] = {"max_abs_diff": err, "max_abs": scale}
+        if not err <= CARD_CPU_RTOL * scale:
+            raise AssertionError(f"{name}: card and CPU differ by {err} "
+                                 f"(largest value {scale})")
+    return out
+
+
+def face_stage_ms(weights: dict) -> dict:
+    """One FACE_CHUNK-frame chunk through the three forwards on the card,
+    each stage bracketed by CUDA events on the compute stream -> {stage: ms
+    summed over its calls}, the forwards' own ms, and the kernels' device
+    time by torch.profiler in a further call."""
+    from unittest import mock
+
+    import torch
+
+    from scannertools_tpu_torch.models import facenet as PF
+    from scannertools_tpu_torch.models import gender as PG
+    from scannertools_tpu_torch.models import mtcnn as PM
+    from scannertools_tpu_torch.ops import faces as PFO
+
+    frames = torch.from_numpy(FaceDecoder(FACE_FRAMES, FACE_H, FACE_W)
+                              .read_frames(range(FACE_CHUNK))).cuda()
+    aux = {m: PFO._get_params(m, weights[m]) for m in weights}
+    aux = {"mtcnn": {n: {k: v.cuda() for k, v in sd.items()}
+                     for n, sd in aux["mtcnn"].items()},
+           "facenet": {k: v.cuda() for k, v in aux["facenet"].items()},
+           "gender": {k: v.cuda() for k, v in aux["gender"].items()}}
+    budget = PFO.MAX_FACES
+
+    def forwards():
+        nb, sc_, v = PFO.mtcnn_forward(None, aux["mtcnn"], frames,
+                                       thresholds=FACE_THRESHOLDS)
+        PFO.face_embed_forward(None, aux["facenet"], frames, nb, v,
+                               faces_budget=budget)
+        PFO.gender_forward(None, aux["gender"], frames, nb, v,
+                           faces_budget=budget)
+
+    forwards()  # warm: index maps, taps, cuDNN plans
+    marks = []
+    calls = {"nms": 0, "crop": 0}
+    nms_names = ["nms_scale"] * 5 + ["nms_cross_scale", "nms_rnet",
+                                     "nms_onet"]
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            name = stage(args) if callable(stage) else stage
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((name, start, end))
+            return out
+        return run
+
+    def nms_stage(args):
+        calls["nms"] += 1
+        return nms_names[(calls["nms"] - 1) % len(nms_names)]
+
+    def crop_stage(args):
+        return {24: "crop_rnet", 48: "crop_onet", 160: "crop_facenet",
+                227: "crop_gender"}[args[2][0]]
+
+    def net_stage(args):
+        return {PM.PNet: "pnet", PM.RNet: "rnet", PM.ONet: "onet"}[args[0]]
+
+    patches = [(PM, "resize_hw", "pyramid"), (PM, "nms", nms_stage),
+               (PM, "crop_and_resize", crop_stage),
+               (PFO, "crop_and_resize", crop_stage),
+               (PM, "apply_net", net_stage), (PF, "embed", "facenet"),
+               (PG, "classify", "gender"),
+               (PFO, "mtcnn_forward", "mtcnn_forward"),
+               (PFO, "face_embed_forward", "face_embed_forward"),
+               (PFO, "gender_forward", "gender_forward")]
+    with contextlib.ExitStack() as stack:
+        for mod, name, stage in patches:
+            stack.enter_context(mock.patch.object(
+                mod, name, timed(stage, getattr(mod, name))))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forwards()
+        end.record()
+        torch.cuda.synchronize()
+    out = {"chunk": start.elapsed_time(end)}
+    for stage, s, e in marks:
+        out[stage] = out.get(stage, 0.0) + s.elapsed_time(e)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        forwards()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out["kernels_ms"] = busy if busy > 0 else "not measured"
+    out["frames"] = FACE_CHUNK
+    return out
+
+
+def run_face_pipeline(db: str):
+    """Phase 4 -> {kernel: launches over the four graphs}; every check
+    raises."""
+    weights = write_face_weights(db)
+    rows, launches, results = run_face_graphs(os.path.join(db, "faces"),
+                                              weights)
+    plain = plain_face_graphs(os.path.join(db, "faces_plain"), weights)
+    chunks = -(-FACE_FRAMES // FACE_CHUNK)
+    for name in FACE_GRAPHS:
+        want = {k: n * chunks
+                for k, n in FACE_LAUNCHES_PER_CHUNK[name].items()}
+        results[name]["rows_equal_plain"] = _face_rows_equal(
+            name, rows[name], plain[name])
+        log(results[name])
+        if launches[name] != want:
+            raise AssertionError(f"{name}: launches {launches[name]}, want "
+                                 f"{want}")
+        if not results[name]["rows_equal_plain"]:
+            raise AssertionError(f"{name}: rows differ from the plain "
+                                 "kernels' run")
+    faces = rows["faces"]
+    with_faces = sum(1 for f in faces if f)
+    counts = [len(f) for f in faces]
+    if len(faces) != FACE_FRAMES or with_faces <= FACE_FRAMES // 2:
+        raise AssertionError(f"faces in {with_faces} of {len(faces)} frames")
+    if any(len(g) != n for g, n in zip(rows["genders"], counts)) or any(
+            x not in ("M", "F") for g in rows["genders"] for x in g):
+        raise AssertionError("gender lists do not match the faces")
+    norms = face_embedding_checks(faces, rows["embs"])
+    padded = max(float(np.abs(a - b).max()) if a.size else 0.0
+                 for a, b in zip(rows["embs_padded"], rows["embs"]))
+    if not padded <= 1e-5:
+        raise AssertionError(f"BboxesToPadded embeddings differ from the "
+                             f"rewired ones by {padded}")
+    log({"faces_per_frame": counts, "frames_with_faces": with_faces,
+         **norms, "padded_vs_rewired_max_abs": padded,
+         "card_vs_cpu": card_vs_cpu()})
+    log({"face_stages_ms": face_stage_ms(weights),
+         "shape": [FACE_CHUNK, FACE_H, FACE_W]})
+    return {k: sum(launches[g][k] for g in FACE_GRAPHS)
+            for k in ("nms", "crop_and_resize")}
+
+
+def _face_rows_equal(name: str, got, want) -> bool:
+    if len(got) != len(want):
+        return False
+    if name in ("embs", "embs_padded"):
+        return all(a.shape == b.shape and np.array_equal(a, b)
+                   for a, b in zip(got, want))
+    return got == want
+
+
 # ------------------------------------------------------------ main
 
 
@@ -771,11 +1395,14 @@ def main() -> int:
 
     records = check_kernels()
     records["flow_update"] = check_flow_update()
+    records["nms"] = check_nms()
+    records["crop_and_resize"] = check_crop()
 
     db = tempfile.mkdtemp(prefix="chip_smoke_db_")
     try:
         launches = run_pipeline(db)
         flow_launches = run_flow_pipeline(db)
+        face_launches = run_face_pipeline(db)
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
@@ -795,6 +1422,17 @@ def main() -> int:
          "replaces": "scannertools_tpu/ops/optical_flow.py:244",
          "launches": flow_launches, **records["flow_update"],
          "library_ms": None},
+        # no torchvision on the card's machine: no library NMS to time
+        {"name": "nms", "route": "cuda",
+         "source": "scannertools_tpu_torch/kernels/csrc/nms.cu",
+         "replaces": "scannertools_tpu/models/common.py:33",
+         "launches": face_launches["nms"], **records["nms"],
+         "library_ms": None},
+        {"name": "crop_and_resize", "route": "cuda",
+         "source": "scannertools_tpu_torch/kernels/csrc/crop_resize.cu",
+         "replaces": "scannertools_tpu/models/common.py:105",
+         "launches": face_launches["crop_and_resize"],
+         **records["crop_and_resize"]},
     ]
     log({"kernels": kernels})
     smi = subprocess.run(

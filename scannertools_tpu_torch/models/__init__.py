@@ -1,0 +1,8 @@
+"""Model zoo: torch implementations of the reference's NN ops, with the
+JAX package's architectures and the torch names of models/porting_maps.py
+(SURVEY §2a/2f).
+
+Pretrained weights are not bundled (no-egress build environment); load them
+as an npz in the JAX package's layout via models/weights.py."""
+
+from . import common, facenet, gender, mtcnn, porting_maps, weights  # noqa: F401

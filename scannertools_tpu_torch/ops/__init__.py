@@ -7,3 +7,4 @@ from . import imgproc  # noqa: F401
 from . import misc  # noqa: F401
 from . import optical_flow  # noqa: F401
 from . import shot_detection  # noqa: F401
+from . import faces  # noqa: F401  (after imgproc: models import it)

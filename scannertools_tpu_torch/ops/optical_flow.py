@@ -31,8 +31,9 @@ torch on the tensors' device, written as the JAX package writes them:
     ``F.conv2d``: a float32 convolution on the card goes through cuDNN in
     TF32 by default (``torch.backends.cudnn.allow_tf32``), about three
     decimal digits;
-  * padding and resizing are imgproc's ``_pad`` and ``resize_hw``, which
-    border and weight as ``jnp.pad`` and ``jax.image.resize`` do
+  * padding and resizing are imgproc's ``_pad`` and ``utils.numerics``'s
+    ``resize_hw``, which border and weight as ``jnp.pad`` and
+    ``jax.image.resize`` do
     (REFLECT_101 at any size; half-pixel centres with renormalised edge
     weights, at odd pyramid sizes too);
   * ``_box_blur`` takes differences of float32 cumulative sums. Those sums
@@ -53,7 +54,8 @@ import torch
 from ..kernels import build as _build
 from ..registry import register_op
 from ..utils.framechunk import FrameChunk
-from .imgproc import _div, _pad, _recip, _rgb2gray_u8, resize_hw
+from ..utils.numerics import div as _div, recip as _recip, resize_hw
+from .imgproc import _pad, _rgb2gray_u8
 
 
 # ------------------------------------------------------------ small helpers

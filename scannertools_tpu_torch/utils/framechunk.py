@@ -202,3 +202,12 @@ class FrameChunk:
 
     def __len__(self) -> int:
         return self.flat.shape[0]
+
+
+def as_hwc_f32(frames) -> torch.Tensor:
+    """Device ops' helper: a FrameChunk or a plain NHWC array -> a float32
+    [T, H, W, C] tensor (on the chunk's device; i420 converted in the
+    written order by ``hwc_f32``)."""
+    if isinstance(frames, FrameChunk):
+        frames = frames.hwc_f32()
+    return torch.as_tensor(frames).to(torch.float32).contiguous()

@@ -8,7 +8,12 @@ frames whose values all fall in bin 15 (for I420, values past 255, which
 the kernel counts apart and folds into bin 15). The flow update kernel is
 held to its plain version in both warp modes at ragged sizes: odd sides,
 levels of at most 16 rows (where the shift-warp's bound is below
-warp_px) and a 2-row level. Inputs are made from a seed with numpy.
+warp_px) and a 2-row level. ``nms`` and ``crop_and_resize`` are held to
+their plain versions on the card and on the CPU: seeded box clouds with
+tied scores, K = 1 and K not a multiple of 64, max_out above and below K,
+the alternating chain, all-invalid frames; crops up- and downsampled, on
+and past the frame's edge, degenerate, from several frames in one launch.
+Inputs are made from a seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -22,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from scannertools_tpu_torch.models import common as MC
 from scannertools_tpu_torch.ops import histogram as H
 from scannertools_tpu_torch.ops import optical_flow as OF
 from scannertools_tpu_torch.utils.framechunk import FrameChunk
@@ -221,3 +227,144 @@ def test_flow_update_kernel_refuses_bad_inputs(cuda_device):
     empty = OF.flow_update(r0[:0], r1[:0], flow[:0])
     assert empty.shape == (0, 9, 11, 5)
     assert OF.flow_update.launches == before
+
+
+def _box_cloud(rng, t, k, span=60.0):
+    c = rng.uniform(0, span, (t, k, 2))
+    wh = rng.uniform(2, 20, (t, k, 2))
+    return np.concatenate([c - wh / 2, c + wh / 2], axis=-1).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("mode", ["union", "min"])
+@pytest.mark.parametrize("t,k,max_out", [(1, 1, 1), (3, 5, 9), (4, 96, 96),
+                                         (2, 130, 64), (2, 256, 256),
+                                         (1, 1280, 1280)])
+def test_nms_kernel_matches_plain(cuda_device, mode, t, k, max_out):
+    """Seeded clouds with tied scores and rows at the score threshold;
+    K = 1, K past max_out, max_out past K, K not a multiple of 64."""
+    rng = np.random.default_rng(17 + k)
+    boxes = torch.from_numpy(_box_cloud(rng, t, k))
+    scores = rng.uniform(0, 1, (t, k)).astype(np.float32)
+    scores[:, ::7] = 0.5
+    scores[:, 1::11] = 0.1
+    scores = torch.from_numpy(scores)
+    b, s = boxes.to(cuda_device), scores.to(cuda_device)
+    before = MC.nms.launches
+    got = MC.nms(b, s, 0.45, max_out, 0.1, mode)
+    assert MC.nms.launches == before + 1
+    for g, p, c in zip(got, MC.nms_plain(b, s, 0.45, max_out, 0.1, mode),
+                       MC.nms_plain(boxes, scores, 0.45, max_out, 0.1,
+                                    mode)):
+        assert torch.equal(g, p)
+        assert torch.equal(g.cpu(), c)
+
+
+def test_nms_kernel_chain_and_invalid_frames(cuda_device):
+    """The 32-deep alternating chain (each box overlaps only the next), an
+    all-invalid frame and an all-tied frame, in one launch."""
+    n = 64
+    chain = np.stack([np.arange(n) * 6.0, np.zeros(n),
+                      np.arange(n) * 6.0 + 10, np.full(n, 10.0)],
+                     axis=1).astype(np.float32)
+    boxes = torch.from_numpy(np.stack([chain, chain, chain[::-1].copy()]))
+    scores = torch.from_numpy(np.stack([
+        np.linspace(1.0, 0.5, n), np.zeros(n), np.full(n, 0.5)]).astype(
+            np.float32))
+    b, s = boxes.to(cuda_device), scores.to(cuda_device)
+    got = MC.nms(b, s, 0.2, n)
+    for g, p in zip(got, MC.nms_plain(boxes, scores, 0.2, n)):
+        assert torch.equal(g.cpu(), p)
+    assert got[2][0].sum() == n // 2 and not got[2][1].any()
+
+
+def test_nms_kernel_refuses_bad_inputs(cuda_device):
+    b = torch.zeros((2, 8, 4), device=cuda_device)
+    s = torch.zeros((2, 8), device=cuda_device)
+    before = MC.nms.launches
+    with pytest.raises(TypeError):
+        MC.nms(b.double(), s.double(), 0.5, 4)
+    with pytest.raises(ValueError):
+        MC.nms(b.transpose(0, 1).contiguous().transpose(0, 1), s, 0.5, 4)
+    with pytest.raises(ValueError):
+        MC.nms(b, s.cpu(), 0.5, 4)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        MC.nms(torch.zeros(2 * 8 * 4 + 1, device=cuda_device)[1:].view(
+            2, 8, 4), s, 0.5, 4)
+    assert MC.nms.launches == before
+
+
+def _crop_case(rng, t, h, w, b):
+    frames = rng.uniform(-1, 255, (t, h, w, 3)).astype(np.float32)
+    xy = rng.uniform(-8, max(h, w), (b, 2))
+    wh = rng.uniform(-3, max(h, w), (b, 2))  # some degenerate
+    boxes = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+    boxes[0] = (0, 0, w, h)          # the whole frame
+    boxes[1] = (w - 3, h - 4, w, h)  # on the bottom-right edge: upsampled
+    boxes[2] = (5, 5, 5, 9)          # degenerate
+    fi = rng.integers(0, t, b).astype(np.int64)
+    return [torch.from_numpy(a) for a in (frames, boxes, fi)]
+
+
+@pytest.mark.parametrize("t,h,w,b,size", [(1, 40, 50, 9, 24),
+                                          (3, 61, 47, 20, 48),
+                                          (2, 120, 160, 12, 160),
+                                          (2, 96, 128, 7, 227),
+                                          (2, 33, 35, 5, 7)])
+def test_crop_and_resize_kernel_matches_plain(cuda_device, t, h, w, b,
+                                              size):
+    """Up- and downsampled boxes, boxes on and past the frame's edge,
+    degenerate boxes, crops from several frames in one launch."""
+    frames, boxes, fi = _crop_case(np.random.default_rng(19 + size), t, h,
+                                   w, b)
+    args = [a.to(cuda_device) for a in (frames, boxes)]
+    fid = fi.to(cuda_device)
+    before = MC.crop_and_resize.launches
+    got = MC.crop_and_resize(*args, (size, size), fid)
+    assert MC.crop_and_resize.launches == before + 1
+    assert got.shape == (b, size, size, 3)
+    assert torch.equal(got, MC.crop_and_resize_plain(*args, (size, size),
+                                                     fid))
+    assert torch.equal(got.cpu(), MC.crop_and_resize_plain(
+        frames, boxes, (size, size), fi))
+
+
+def test_crop_and_resize_kernel_refuses_bad_inputs(cuda_device):
+    frames, boxes, fi = [a.to(cuda_device) for a in _crop_case(
+        np.random.default_rng(23), 2, 20, 30, 6)]
+    before = MC.crop_and_resize.launches
+    with pytest.raises(TypeError):
+        MC.crop_and_resize(frames.double(), boxes, (8, 8), fi)
+    with pytest.raises(TypeError):
+        MC.crop_and_resize(frames, boxes, (8, 8), fi.int())
+    with pytest.raises(ValueError):
+        MC.crop_and_resize(frames.transpose(1, 2), boxes, (8, 8), fi)
+    with pytest.raises(ValueError):
+        MC.crop_and_resize(frames, boxes, (8, 8), fi.cpu())
+    assert MC.crop_and_resize.launches == before
+    assert MC.crop_and_resize(frames, boxes[:0], (8, 8), fi[:0]).shape == \
+        (0, 8, 8, 3)
+    assert MC.crop_and_resize.launches == before
+
+
+def test_crop_and_resize_kernel_traps_on_a_frame_past_the_batch(cuda_device):
+    """A frame index outside [0, T) stops the kernel before it reads (in a
+    child process: the trap loses the CUDA context)."""
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from scannertools_tpu_torch.models import common as MC
+frames = torch.zeros((2, 20, 30, 3), device="cuda")
+boxes = torch.tensor([[0.0, 0.0, 10.0, 10.0]], device="cuda")
+MC.crop_and_resize(frames, boxes, (8, 8),
+                   torch.tensor([2], device="cuda"))
+try:
+    torch.cuda.synchronize()
+except RuntimeError:
+    print("RAISED")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert "RAISED" in res.stdout, res.stdout + res.stderr
