@@ -42,17 +42,23 @@ equal those of the plain versions run on the card over the same frames.
 One chunk's time is split by stage with CUDA events.
 
 Phase 1 holds ``nms`` (kernels/csrc/nms.cu) to its plain version
-(difference 0) on seeded box clouds at K = 1, 5, 96, 128, 256 and 1280,
-both overlap modes, 16-frame batches with tied scores and an all-invalid
-frame, max_out below, at and above K, and the alternating chain; and
+(difference 0) on seeded box clouds at K = 1, 5, 63, 64, 65, 96, 127, 128,
+129, 256, 1000 (on both paths), 1280 (the one-launch path's shared-memory
+limit), 1281, 2048 and 4096 (the device-memory path), both overlap modes,
+batches with tied scores and an all-invalid frame, max_out below the kept
+count, at and above K, and alternating chains within and across tiles; and
 ``crop_and_resize`` (kernels/csrc/crop_resize.cu) at 24, 48, 160 and 227
 px outputs over mixed, upsampled, downsampled, edge and degenerate boxes
-from 16 frames of 640x480 in one launch. Each is timed at the face path's
+from 16 frames of 640x480 in one launch, and at C = 1, 3, 4 and 256
+channels, output widths 227 and 1 (rows off a 16-byte boundary), on
+frames on and off a 16-byte boundary. Each is timed at the face path's
 calls: ``nms`` at the cross-scale call of a 16-frame chunk (the record),
-the per-scale, R-Net and O-Net calls; ``crop_and_resize`` at FaceNet's 512
+the five pyramid scales' call, R-Net and O-Net calls, and at the detection
+models' [1, 1000] and [2, 2048] calls; ``crop_and_resize`` at FaceNet's 512
 crops of 160x160 (16 frames at the budget of 32 faces that phase 4 passes;
 the record; ``library_ms`` is ``F.grid_sample`` at the same sample
-positions, checked to agree), gender's, R-Net's and O-Net's.
+positions, checked to agree), gender's, R-Net's and O-Net's, and at 1000
+RoIs of a 256-channel P2 map at 7x7 and 14x14.
 
 Phase 4 drives the face suite at 640x480: 32 frames of a synthetic texture
 with drifting bright blobs, chunks of 16, RGB ingest, the port's seeded
@@ -63,7 +69,7 @@ weights). Four graphs in turn through ``Client.run``: ``MTCNNDetectFaces``,
 ``EmbedFaces`` over the stored faces (``BboxesToPadded``). Their stored rows
 must equal those of the same graphs with both kernels patched to their
 plain versions on the card; most frames must have faces, embeddings unit
-norm within 1e-5, the launches 8 ``nms`` and 2-3 crops a chunk. FaceNet
+norm within 1e-5, the launches 4 ``nms`` and 2-3 crops a chunk. FaceNet
 embeddings and gender logits of seeded crops on the card are held to the
 CPU's, and one chunk's time is split by stage with CUDA events.
 
@@ -81,13 +87,14 @@ import json
 import math
 import os
 import shutil
-import statistics
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+
+from scannertools_tpu_torch.tools.timing import (box_cloud, card,
+                                                 grid_sample_crops, time_ms)
 
 N_FRAMES, HEIGHT, WIDTH, FPS = 480, 1080, 1920, 24.0
 CUTS = (120, 240, 360)
@@ -127,35 +134,6 @@ def log(obj) -> None:
 
 
 # ------------------------------------------------------------ timing
-
-
-# A spin of this many card cycles (about 0.5 ms) before the start event
-# keeps the card busy while the host prepares the timed call.
-FENCE_CYCLES = 1_000_000
-
-
-def time_ms(fn, reps: int = 20, warm: int = 3, fence: bool = False) -> float:
-    """Median of ``reps`` single calls, each timed with CUDA events. With
-    ``fence`` the card spins before the start event, so the host's work in
-    ``fn`` overlaps the spin and only the device's time of the call is
-    measured; without it the card waits for the host inside the window."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if fence:
-            torch.cuda._sleep(FENCE_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def read_ms(x) -> float:
@@ -391,14 +369,6 @@ def check_flow_update():
     return record
 
 
-def box_cloud(rng, t: int, k: int, span: float = 600.0):
-    """[t, k, 4] float32 pixel boxes of 8-120 px around seeded centres."""
-    c = rng.uniform(0, span, (t, k, 2))
-    wh = rng.uniform(8, 120, (t, k, 2))
-    return np.concatenate([c - wh / 2, c + wh / 2], axis=-1).astype(
-        np.float32)
-
-
 def nms_bound(boxes, scores, max_out: int, score_thresh: float) -> tuple:
     """The bound of one nms call on these inputs: boxes and scores read,
     boxes, scores and valid written once; the operations its data needs:
@@ -420,7 +390,9 @@ def nms_bound(boxes, scores, max_out: int, score_thresh: float) -> tuple:
 def check_nms():
     """-> the nms record at the main path's largest call (the cross-scale
     NMS of a 16-frame chunk: [16, 256] boxes, max_out 256), after holding
-    the kernel to its plain version (difference 0) on seeded clouds."""
+    the kernel to its plain version (difference 0) on seeded clouds, on
+    both of its paths (one launch, or the mask in device memory, as
+    MC.nms_geometry picks them)."""
     import torch
 
     from scannertools_tpu_torch.models import common as MC
@@ -444,33 +416,56 @@ def check_nms():
             raise AssertionError(f"nms disagrees with its plain version at "
                                  f"{tags}, k {scores.shape}: {err}")
 
+    limit = MC.NMS_SHARED_MAX_K
     for mode in ("union", "min"):
-        for k in (1, 5, 96, 128, 256, 1280):
-            t = 16 if k <= 256 else 2
-            boxes = box_cloud(rng, t, k)
+        for k in (1, 5, 63, 64, 65, 96, 127, 128, 129, 256, 1000, limit,
+                  limit + 1, 2048, 4096):
+            # K = 1000 on both paths (2 frames spread, 32 do not); at the
+            # limit, enough frames for the one-launch path
+            t = 16 if k <= 256 else (MC.NMS_SPREAD_BELOW_T if k == limit
+                                     else 2)
+            # denser clouds at the tile edges: suppression crosses tiles
+            boxes = box_cloud(rng, t, k, 600.0 if k in (96, 128, 256)
+                              else 40.0 * max(1.0, (k / 128) ** 0.5))
             scores = rng.uniform(0, 1, (t, k)).astype(np.float32)
             scores[:, ::5] = 0.5          # ties
             scores[0] = 0.0               # an all-invalid frame
             iou = 0.7 if mode == "union" else 0.3
-            for max_out in sorted({max(1, k // 2), k, k + 7}):
-                check(boxes, scores, iou, max_out, 0.0, mode)
-    # the alternating chain: box i overlaps only box i + 1 (IoU 0.25)
-    n = 64
-    chain = np.stack([np.arange(n) * 6.0, np.zeros(n),
-                      np.arange(n) * 6.0 + 10, np.full(n, 10.0)],
-                     axis=1).astype(np.float32)
-    check(np.stack([chain, chain]), np.stack(
-        [np.linspace(1.0, 0.5, n), np.full(n, 0.5)]).astype(np.float32),
-        0.2, n, 0.0, "union", case="chain")
+            kept = int(MC.nms_plain(torch.from_numpy(boxes).cuda(),
+                                    torch.from_numpy(scores).cuda(), iou,
+                                    k, 0.0, mode)[2].sum(dim=1).max())
+            for max_out in sorted({max(1, k // 2), max(1, kept // 2), k,
+                                   k + 7}):
+                check(boxes, scores, iou, max_out, 0.0, mode,
+                      path=MC.nms_geometry(t, k)["path"])
+            if k == 1000:  # and the one-launch path at this K
+                many = np.concatenate([boxes] * 16)
+                check(many, np.concatenate([scores] * 16), iou, k, 0.0,
+                      mode, path=MC.nms_geometry(len(many), k)["path"])
+    # alternating chains: box i overlaps only box i + 1 (IoU 0.25), within
+    # a tile, across tiles, and on the device-memory path
+    for n in (64, 150, 1500):
+        chain = np.stack([np.arange(n) * 6.0, np.zeros(n),
+                          np.arange(n) * 6.0 + 10, np.full(n, 10.0)],
+                         axis=1).astype(np.float32)
+        check(np.stack([chain, chain]), np.stack(
+            [np.linspace(1.0, 0.5, n), np.full(n, 0.5)]).astype(np.float32),
+            0.2, n, 0.0, "union", case="chain")
 
     timings = {}
-    for name, k, max_out, mode in (("cross_scale", 256, 256, "union"),
-                                   ("per_scale", 128, 128, "union"),
-                                   ("rnet", 96, 96, "union"),
-                                   ("onet", 64, 32, "min")):
-        boxes = torch.from_numpy(box_cloud(rng, FACE_CHUNK, k)).cuda()
+    # the face path's calls of a chunk (the five pyramid scales' calls in
+    # one), then the detection models': a Mask R-CNN FPN level, Faster
+    # R-CNN's proposals
+    for name, t, k, max_out, mode in (
+            ("cross_scale", FACE_CHUNK, 256, 256, "union"),
+            ("per_scale", 5 * FACE_CHUNK, 128, 128, "union"),
+            ("rnet", FACE_CHUNK, 96, 96, "union"),
+            ("onet", FACE_CHUNK, 64, 32, "min"),
+            ("fpn_level", 1, 1000, 1000, "union"),
+            ("rpn", 2, 2048, 300, "union")):
+        boxes = torch.from_numpy(box_cloud(rng, t, k)).cuda()
         scores = torch.from_numpy(rng.uniform(
-            0, 1, (FACE_CHUNK, k)).astype(np.float32)).cuda()
+            0, 1, (t, k)).astype(np.float32)).cuda()
         bound, by = nms_bound(boxes, scores, max_out, 0.0)
         timings[name] = {
             "ms": time_ms(lambda: MC.nms(boxes, scores, 0.7, max_out, 0.0,
@@ -480,56 +475,41 @@ def check_nms():
             "plain_ms": time_ms(lambda: MC.nms_plain(
                 boxes, scores, 0.7, max_out, 0.0, mode), reps=5, warm=1),
             "bound_ms": bound, "bound_by": by}
-        log({"timing": "nms", "call": name, "shape": [FACE_CHUNK, k],
-             "max_out": max_out, "mode": mode, **timings[name]})
+        log({"timing": "nms", "call": name, "shape": [t, k],
+             "max_out": max_out, "mode": mode,
+             "kept": int(MC.nms(boxes, scores, 0.7, max_out, 0.0,
+                                mode)[2].sum()), **timings[name]})
     torch.cuda.synchronize()
     record = dict(timings["cross_scale"])
     record["max_abs_err"] = worst
     return record
 
 
-def crop_grid_sample(images, boxes, oh: int, ow: int):
-    """The library yardstick of crop_and_resize: ``F.grid_sample``
-    (bilinear, align_corners=True) at the kernel's clamped sample
-    positions, for K boxes a frame in frame order (boxes [T, K, 4]) ->
-    [T * K, oh, ow, C]. Only the grid_sample call is timed."""
+def crop_bound(images, boxes, oh: int, ow: int) -> tuple:
+    """Bytes: the crops written once, the boxes and frame indices read, and
+    each frame pixel that some crop's taps read, once (overlapping boxes
+    share their pixels); operations: 9 a value (two y-lerps and an x-lerp)
+    and 26 a pixel for its two sample positions and four weights. boxes:
+    [T, K, 4], K a frame of ``images``."""
     import torch
-    import torch.nn.functional as F
 
     from scannertools_tpu_torch.models import common as MC
 
     t, h, w, c = images.shape
-    k = boxes.shape[1]
-    flat = boxes.reshape(t * k, 4)
-    ys = MC._sample_positions(flat[:, 1], flat[:, 3], oh, h)
-    xs = MC._sample_positions(flat[:, 0], flat[:, 2], ow, w)
-    gy = (ys / (h - 1) * 2 - 1)[:, :, None].expand(t * k, oh, ow)
-    gx = (xs / (w - 1) * 2 - 1)[:, None, :].expand(t * k, oh, ow)
-    grid = torch.stack([gx, gy], dim=-1).reshape(t, k * oh, ow, 2)
-    inp = images.permute(0, 3, 1, 2).contiguous()
-
-    def call():
-        return F.grid_sample(inp, grid, mode="bilinear",
-                             padding_mode="border", align_corners=True)
-
-    out = call().reshape(t, c, k, oh, ow).permute(0, 2, 3, 4, 1)
-    return out.reshape(t * k, oh, ow, c), call
-
-
-def crop_bound(images, boxes, oh: int, ow: int) -> tuple:
-    """Bytes: the crops written once, the boxes and frame indices read, and
-    the frame pixels inside each (clamped) box read once; operations: 9 a
-    value (two y-lerps and an x-lerp) and 26 a pixel for its two sample
-    positions and four weights."""
-    _, h, w, c = images.shape
-    b = boxes.reshape(-1, 4).cpu().numpy().astype(np.float64)
-    x1, x2 = np.clip(b[:, 0], 0, w - 1), np.clip(b[:, 2], 0, w - 1)
-    y1, y2 = np.clip(b[:, 1], 0, h - 1), np.clip(b[:, 3], 0, h - 1)
-    area = (np.floor(np.maximum(x2 - x1, 0)) + 2) * \
-        (np.floor(np.maximum(y2 - y1, 0)) + 2)
-    n_out = b.shape[0] * oh * ow
-    nbytes = n_out * c * 4 + b.shape[0] * (16 + 8) + float(
-        np.minimum(area, oh * ow * 4).sum()) * c * 4
+    flat = boxes.reshape(-1, 4)
+    fi = torch.arange(t, device=flat.device).repeat_interleave(
+        boxes.shape[1])
+    touched = torch.zeros((t, h, w), dtype=torch.bool, device=flat.device)
+    for i in range(0, flat.shape[0], 64):
+        b = flat[i:i + 64]
+        y0, y1, _, _ = MC._taps(b[:, 1], b[:, 3], oh, h)
+        x0, x1, _, _ = MC._taps(b[:, 0], b[:, 2], ow, w)
+        rows, cols = torch.cat([y0, y1], 1), torch.cat([x0, x1], 1)
+        touched[fi[i:i + 64, None, None], rows[:, :, None],
+                cols[:, None, :]] = True
+    n_out = flat.shape[0] * oh * ow
+    nbytes = (n_out * c * 4 + flat.shape[0] * (16 + 8)
+              + int(touched.sum()) * c * 4)
     return bound_ms(nbytes, n_out * (9 * c + 26))
 
 
@@ -537,7 +517,7 @@ def check_crop():
     """-> the crop_and_resize record at FaceNet's crop of a 16-frame 640x480
     chunk (MAX_FACES boxes a frame, the budget phase 4 passes, 160x160),
     after holding the kernel to its plain version (difference 0) at the
-    four output sizes of the face path."""
+    four output sizes of the face path, and at 1, 3, 4 and 256 channels."""
     import torch
 
     from scannertools_tpu_torch.models import common as MC
@@ -576,35 +556,70 @@ def check_crop():
             if not torch.equal(got, want):
                 raise AssertionError(f"crop_and_resize disagrees with its "
                                      f"plain version: {size} {kind}: {err}")
+    # both kernels (rows for C <= 4, channel vectors for C = 256) at widths
+    # 227 (rows mostly off a 16-byte boundary) and 1, on frames on and off
+    # a 16-byte boundary (off it, C = 256 takes the row kernel)
+    for c in (1, 3, 4, 256):
+        maps = torch.from_numpy(rng.uniform(
+            0, 255, (2, 61, 83, c)).astype(np.float32)).cuda()
+        shifted = torch.empty(maps.numel() + 1, device="cuda")[1:].view(
+            maps.shape)
+        shifted.copy_(maps)
+        boxes = torch.from_numpy(box_cloud(rng, 1, 24, 70.0)[0]).cuda()
+        fi = torch.from_numpy(rng.integers(0, 2, 24)).cuda()
+        for ow in (227, 1):
+            want = MC.crop_and_resize_plain(maps, boxes, (9, ow), fi)
+            for base, imgs in (("aligned", maps), ("offset", shifted)):
+                got = MC.crop_and_resize(imgs, boxes, (9, ow), fi)
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                log({"check": "crop_and_resize", "channels": c,
+                     "out": [9, ow], "frames": base, "n": 24,
+                     "max_abs_err": err})
+                if not torch.equal(got, want):
+                    raise AssertionError(f"crop_and_resize disagrees with "
+                                         f"its plain version: C {c}, width "
+                                         f"{ow}, {base}: {err}")
 
+    # FPN level P2 of an 800x1344 canvas (stride 4), 256 channels
+    p2 = torch.from_numpy(rng.standard_normal((1, 200, 336, 256)).astype(
+        np.float32)).cuda()
     timings = {}
-    for name, k, size in (("facenet", MAX_FACES, 160),
-                          ("gender", MAX_FACES, 227),
-                          ("rnet", 96, 24), ("onet", 64, 48)):
-        boxes = torch.from_numpy(box_cloud(rng, FACE_CHUNK, k)).cuda()
-        fi = torch.arange(FACE_CHUNK).cuda().repeat_interleave(k)
+    for name, images, k, size in (("facenet", frames, MAX_FACES, 160),
+                                  ("gender", frames, MAX_FACES, 227),
+                                  ("rnet", frames, 96, 24),
+                                  ("onet", frames, 64, 48),
+                                  ("roi_7", p2, 1000, 7),
+                                  ("roi_14", p2, 1000, 14)):
+        t, h, w, c = images.shape
+        boxes = torch.from_numpy(
+            box_cloud(rng, t, k) if images is frames else
+            box_cloud(rng, t, k, float(min(h, w)), lo=2.0, hi=60.0)).cuda()
+        fi = torch.arange(t).cuda().repeat_interleave(k)
         flat = boxes.reshape(-1, 4).contiguous()
-        lib_out, lib_call = crop_grid_sample(frames, boxes, size, size)
-        got = MC.crop_and_resize(frames, flat, (size, size), fi)
+        lib_out, lib_call = grid_sample_crops(images, boxes, size, size,
+                                              MC._sample_positions)
+        got = MC.crop_and_resize(images, flat, (size, size), fi)
         lib_err = float((lib_out - got).abs().max())
         # the positions' round trip through [-1, 1] moves a sample by a few
         # float32 ulps of 640 px (6.1e-5 each), times pixel steps up to 255
         if not lib_err < CROP_LIBRARY_ATOL:
             raise AssertionError(f"grid_sample and crop_and_resize differ "
                                  f"by {lib_err} at {name}")
-        bound, by = crop_bound(frames, boxes, size, size)
+        del lib_out, got
+        bound, by = crop_bound(images, boxes, size, size)
         timings[name] = {
-            "ms": time_ms(lambda: MC.crop_and_resize(frames, flat,
+            "ms": time_ms(lambda: MC.crop_and_resize(images, flat,
                                                      (size, size), fi)),
             "device_ms": time_ms(lambda: MC.crop_and_resize(
-                frames, flat, (size, size), fi), fence=True),
+                images, flat, (size, size), fi), fence=True),
             "plain_ms": time_ms(lambda: MC.crop_and_resize_plain(
-                frames, flat, (size, size), fi), reps=5, warm=1),
+                images, flat, (size, size), fi), reps=5, warm=1),
             "library_ms": time_ms(lib_call),
             "library_max_abs_err": lib_err,
             "bound_ms": bound, "bound_by": by}
         log({"timing": "crop_and_resize", "call": name,
-             "shape": [FACE_CHUNK * k, size, size, 3], **timings[name]})
+             "shape": [t * k, size, size, c], **timings[name]})
     torch.cuda.synchronize()
     record = dict(timings["facenet"])
     del record["library_max_abs_err"]
@@ -1067,13 +1082,14 @@ class FaceDecoder:
 
 
 FACE_GRAPHS = ("faces", "embs", "genders", "embs_padded")
-# launches of each kernel per chunk in each graph: 8 nms (one per pyramid
-# scale at 640x480, then the cross-scale, R-Net and O-Net calls) and 2
-# crops (R-Net, O-Net) in every MTCNN forward, one crop per crop net
+# launches of each kernel per chunk in each graph: 4 nms (the five pyramid
+# scales' calls at 640x480 in one, then the cross-scale, R-Net and O-Net
+# calls) and 2 crops (R-Net, O-Net) in every MTCNN forward, one crop per
+# crop net
 FACE_LAUNCHES_PER_CHUNK = {
-    "faces": {"nms": 8, "crop_and_resize": 2},
-    "embs": {"nms": 8, "crop_and_resize": 3},
-    "genders": {"nms": 8, "crop_and_resize": 3},
+    "faces": {"nms": 4, "crop_and_resize": 2},
+    "embs": {"nms": 4, "crop_and_resize": 3},
+    "genders": {"nms": 4, "crop_and_resize": 3},
     "embs_padded": {"nms": 0, "crop_and_resize": 1},
 }
 
@@ -1265,8 +1281,7 @@ def face_stage_ms(weights: dict) -> dict:
     forwards()  # warm: index maps, taps, cuDNN plans
     marks = []
     calls = {"nms": 0, "crop": 0}
-    nms_names = ["nms_scale"] * 5 + ["nms_cross_scale", "nms_rnet",
-                                     "nms_onet"]
+    nms_names = ["nms_scales", "nms_cross_scale", "nms_rnet", "nms_onet"]
 
     def timed(stage, fn):
         def run(*args, **kw):
@@ -1435,10 +1450,7 @@ def main() -> int:
          **records["crop_and_resize"]},
     ]
     log({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

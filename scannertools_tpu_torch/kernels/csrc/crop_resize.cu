@@ -6,9 +6,8 @@
 // hat matrices Ry [oh, H] and Rx [ow, W] with R[i, y] = max(0, 1 - |s_i -
 // y|) and contracts them with the whole frame in two float32 einsums:
 // (oh * H + ow * W) weights per crop, all but two per row zero. On this
-// card a gather is a cached load: one thread per output pixel of one crop
-// computes its sample position, reads the only two nonzero taps of each
-// hat row, floor(s) and floor(s) + 1, and writes all C channels.
+// card a gather is a cached load: each output value reads the only two
+// nonzero taps of each hat row, floor(s) and floor(s) + 1.
 //
 // Inputs: images [T, H, W, C] float32, boxes [B, 4] pixel (x1, y1, x2, y2)
 // float32, frame_idx [B] int64 (the frame each box is cut from, in [0, T):
@@ -27,9 +26,31 @@
 // (XLA rewrites x / c so; imgproc._div).
 //
 // What bounds it: each output value is written once (4 B) and reads four
-// taps, mostly from L1/L2 (neighbouring threads read neighbouring columns),
-// and the taps of a crop lie in its box: the bytes are about the output's,
-// at 8 float32 operations per value. Bytes bound it.
+// taps, mostly from L1 (neighbouring lanes read neighbouring columns), and
+// the taps of a crop lie in its box: the bytes are about the output's, at 8
+// float32 operations per value. Bytes bound it, the writes above all. The
+// first design (one thread an output pixel) spent its time elsewhere: four
+// 64-bit divisions a pixel, the box and both axes' taps (about 25
+// operations and a floor) recomputed by every pixel, and C serial values a
+// thread, stored as 12-byte strided scalars for C = 3. This one:
+//
+//  * one block of 256 threads per (box, band of output rows); one thread
+//    loads the box and the frame index (and traps on a bad index), and the
+//    block computes the ow column taps and the band's row taps once into
+//    shared memory, with the tap offsets premultiplied by their strides.
+//    Index arithmetic inside a crop is 32-bit (the wrapper checks that
+//    H * W * C and oh * ow * C fit).
+//  * crop_rows, for C of 1-4 (the face path) and any C that is not a
+//    multiple of 4: a warp takes an output row, whose ow * C values are
+//    contiguous, and its lanes run over them four at a time: 16-byte
+//    streaming stores from the first 16-byte boundary of the row, scalar
+//    stores at its ragged ends (227 * 3 values a row leave most rows of the
+//    gender crops unaligned).
+//  * crop_pixels, for C a multiple of 4 above 4 (the FPN maps of the
+//    detection models, C = 256): lanes run over the channels as float4, a
+//    warp's lanes split into groups of min(32, C / 4) rounded up to a power
+//    of two, one output pixel a group, so the reads of the four source
+//    taps and the stores are coalesced 16-byte accesses.
 //
 // Numerics: the y-pass first, t = wy0 * img[y0] + wy1 * img[y1] at the two
 // columns, then the x-pass, wx0 * t0 + wx1 * t1, as the two einsums
@@ -44,16 +65,20 @@
 namespace stcrop {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBandRows = 16;
+constexpr int kMaxOw = 2048;
 
 struct Taps {
-  int i0, i1;    // the two source rows (or columns), i1 clamped to the edge
+  int i0, i1;    // the two source offsets (rows or columns times their
+                 // stride), i1 clamped to the edge
   float w0, w1;  // their hat weights; w1 is 0 where i1 was clamped
 };
 
 // The two nonzero taps of output position `o` of `n_out` along an axis of
-// `size` source pixels, for the box side [lo, hi).
+// `size` source pixels, for the box side [lo, hi); offsets times `stride`.
 __device__ __forceinline__ Taps taps(float lo, float hi, int o, float inv_n,
-                                     int size) {
+                                     int size, int stride) {
   const float d = __fsub_rn(hi, lo);
   const float p = __fadd_rn(static_cast<float>(o), 0.5f);
   const float v = __fsub_rn(__fmul_rn(__fmul_rn(d, p), inv_n), 0.5f);
@@ -63,60 +88,206 @@ __device__ __forceinline__ Taps taps(float lo, float hi, int o, float inv_n,
   const float f0 = floorf(s);
   const float f1 = __fadd_rn(f0, 1.f);
   Taps t;
-  t.i0 = static_cast<int>(f0);
-  t.i1 = min(t.i0 + 1, size - 1);
+  const int i0 = static_cast<int>(f0);
+  t.i0 = i0 * stride;
+  t.i1 = min(i0 + 1, size - 1) * stride;
   t.w0 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(s, f0))));
   t.w1 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(s, f1))));
   return t;
 }
 
-__global__ void __launch_bounds__(kThreads) crop_resize_kernel(
+// One output value: the y-pass at the two columns, then the x-pass.
+__device__ __forceinline__ float lerp(const float* r0, const float* r1,
+                                      const Taps& ty, const Taps& tx,
+                                      int ch) {
+  const float t0 = __fadd_rn(__fmul_rn(ty.w0, __ldg(r0 + tx.i0 + ch)),
+                             __fmul_rn(ty.w1, __ldg(r1 + tx.i0 + ch)));
+  const float t1 = __fadd_rn(__fmul_rn(ty.w0, __ldg(r0 + tx.i1 + ch)),
+                             __fmul_rn(ty.w1, __ldg(r1 + tx.i1 + ch)));
+  return __fadd_rn(__fmul_rn(tx.w0, t0), __fmul_rn(tx.w1, t1));
+}
+
+__device__ __forceinline__ float4 lerp4(const float4& a00, const float4& a10,
+                                        const float4& a01, const float4& a11,
+                                        const Taps& ty, const Taps& tx) {
+  float4 o;
+#define ST_CROP_LANE(f)                                               \
+  o.f = __fadd_rn(                                                    \
+      __fmul_rn(tx.w0, __fadd_rn(__fmul_rn(ty.w0, a00.f),             \
+                                 __fmul_rn(ty.w1, a10.f))),           \
+      __fmul_rn(tx.w1, __fadd_rn(__fmul_rn(ty.w0, a01.f),             \
+                                 __fmul_rn(ty.w1, a11.f))));
+  ST_CROP_LANE(x)
+  ST_CROP_LANE(y)
+  ST_CROP_LANE(z)
+  ST_CROP_LANE(w)
+#undef ST_CROP_LANE
+  return o;
+}
+
+// What a block works on: its box's frame, and rows [y0, y0 + rows) of its
+// crop, with the column taps xt[ow] and the band's row taps yt[rows] in
+// shared memory.
+struct Band {
+  const float* img;
+  int box, y0, rows;
+  const Taps* xt;
+  const Taps* yt;
+};
+
+__device__ __forceinline__ Band begin_band(
+    const float* images, int t, int h, int w, int c, const float* boxes,
+    const int64_t* frame_idx, int oh, int ow, int band_rows, int bands,
+    float inv_oh, float inv_ow, Taps* smem) {
+  __shared__ int64_t frame_off;
+  __shared__ float4 sbox;
+  Band bd;
+  bd.box = blockIdx.x / bands;
+  bd.y0 = (blockIdx.x - bd.box * bands) * band_rows;
+  bd.rows = min(band_rows, oh - bd.y0);
+  if (threadIdx.x == 0) {
+    const int64_t f = frame_idx[bd.box];
+    if (f < 0 || f >= t) __trap();
+    frame_off = f * h * w * c;
+    sbox = reinterpret_cast<const float4*>(boxes)[bd.box];
+  }
+  __syncthreads();
+  const float4 b = sbox;
+  Taps* xt = smem;
+  Taps* yt = smem + ow;
+  for (int x = threadIdx.x; x < ow; x += kThreads)
+    xt[x] = taps(b.x, b.z, x, inv_ow, w, c);
+  for (int r = threadIdx.x; r < bd.rows; r += kThreads)
+    yt[r] = taps(b.y, b.w, bd.y0 + r, inv_oh, h, w * c);
+  __syncthreads();
+  bd.img = images + frame_off;
+  bd.xt = xt;
+  bd.yt = yt;
+  return bd;
+}
+
+// kC: the channel count when it is 1-4, else 0 (read from c).
+template <int kC>
+__global__ void __launch_bounds__(kThreads) crop_rows(
     const float* __restrict__ images, int t, int h, int w, int c,
     const float* __restrict__ boxes, const int64_t* __restrict__ frame_idx,
-    int64_t n, int oh, int ow, float inv_oh, float inv_ow,
+    int oh, int ow, int band_rows, int bands, float inv_oh, float inv_ow,
     float* __restrict__ out) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= n) return;
-  const int x = static_cast<int>(p % ow);
-  const int64_t r = p / ow;
-  const int y = static_cast<int>(r % oh);
-  const int64_t b = r / oh;
-  const int64_t f = frame_idx[b];
-  if (f < 0 || f >= t) __trap();
-  const float4 box = reinterpret_cast<const float4*>(boxes)[b];
-  const Taps ty = taps(box.y, box.w, y, inv_oh, h);
-  const Taps tx = taps(box.x, box.z, x, inv_ow, w);
-  const float* img = images + f * h * w * c;
-  const float* r0 = img + static_cast<int64_t>(ty.i0) * w * c;
-  const float* r1 = img + static_cast<int64_t>(ty.i1) * w * c;
-  const int64_t c0 = static_cast<int64_t>(tx.i0) * c;
-  const int64_t c1 = static_cast<int64_t>(tx.i1) * c;
-  float* o = out + p * c;
-  for (int ch = 0; ch < c; ++ch) {
-    const float t0 = __fadd_rn(__fmul_rn(ty.w0, __ldg(r0 + c0 + ch)),
-                               __fmul_rn(ty.w1, __ldg(r1 + c0 + ch)));
-    const float t1 = __fadd_rn(__fmul_rn(ty.w0, __ldg(r0 + c1 + ch)),
-                               __fmul_rn(ty.w1, __ldg(r1 + c1 + ch)));
-    o[ch] = __fadd_rn(__fmul_rn(tx.w0, t0), __fmul_rn(tx.w1, t1));
+  extern __shared__ Taps smem_taps[];
+  const int cc = kC ? kC : c;
+  const Band bd = begin_band(images, t, h, w, cc, boxes, frame_idx, oh, ow,
+                             band_rows, bands, inv_oh, inv_ow, smem_taps);
+  const int lane = threadIdx.x & 31;
+  const int row_len = ow * cc;
+  for (int r = threadIdx.x >> 5; r < bd.rows; r += kWarps) {
+    const Taps ty = bd.yt[r];
+    const float* r0 = bd.img + ty.i0;
+    const float* r1 = bd.img + ty.i1;
+    float* orow = out + (static_cast<int64_t>(bd.box) * oh + bd.y0 + r) *
+                            row_len;
+    // values before the row's first 16-byte boundary, and after its last
+    const int head = min(row_len, static_cast<int>(
+        (0u - static_cast<unsigned>(reinterpret_cast<uintptr_t>(orow) >> 2))
+        & 3u));
+    const int body = (row_len - head) & ~3;
+    const int tail = row_len - head - body;
+    if (lane < head + tail) {
+      const int e = lane < head ? lane : head + body + (lane - head);
+      const int x = e / cc;
+      __stcs(orow + e, lerp(r0, r1, ty, bd.xt[x], e - x * cc));
+    }
+    for (int e = head + 4 * lane; e < head + body; e += 4 * 32) {
+      int x = e / cc;
+      int ch = e - x * cc;
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = lerp(r0, r1, ty, bd.xt[x], ch);
+        if (++ch == cc) {
+          ch = 0;
+          ++x;
+        }
+      }
+      __stcs(reinterpret_cast<float4*>(orow + e),
+             make_float4(v[0], v[1], v[2], v[3]));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) crop_pixels(
+    const float* __restrict__ images, int t, int h, int w, int c,
+    const float* __restrict__ boxes, const int64_t* __restrict__ frame_idx,
+    int oh, int ow, int band_rows, int bands, float inv_oh, float inv_ow,
+    float* __restrict__ out) {
+  extern __shared__ Taps smem_taps[];
+  const Band bd = begin_band(images, t, h, w, c, boxes, frame_idx, oh, ow,
+                             band_rows, bands, inv_oh, inv_ow, smem_taps);
+  const int c4 = c >> 2;
+  int group = 1;  // lanes a pixel: min(32, c4) rounded up to a power of 2
+  while (group < c4 && group < 32) group <<= 1;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / group;
+  const int g0 = lane - sub * group;
+  const int per_warp = 32 / group;
+  const int pixels = bd.rows * ow;
+  for (int p = (threadIdx.x >> 5) * per_warp + sub; p < pixels;
+       p += kWarps * per_warp) {
+    const int r = p / ow;
+    const int x = p - r * ow;
+    const Taps ty = bd.yt[r];
+    const Taps tx = bd.xt[x];
+    const float4* a00 = reinterpret_cast<const float4*>(bd.img + ty.i0 + tx.i0);
+    const float4* a10 = reinterpret_cast<const float4*>(bd.img + ty.i1 + tx.i0);
+    const float4* a01 = reinterpret_cast<const float4*>(bd.img + ty.i0 + tx.i1);
+    const float4* a11 = reinterpret_cast<const float4*>(bd.img + ty.i1 + tx.i1);
+    float4* o = reinterpret_cast<float4*>(
+        out + ((static_cast<int64_t>(bd.box) * oh + bd.y0 + r) * ow + x) * c);
+    for (int g = g0; g < c4; g += group)
+      __stcs(o + g, lerp4(__ldg(a00 + g), __ldg(a10 + g), __ldg(a01 + g),
+                          __ldg(a11 + g), ty, tx));
   }
 }
 
 }  // namespace stcrop
 
 // images [t, h, w, c], boxes [b, 4] (16-byte aligned), frame_idx [b] int64,
-// out [b, oh, ow, c]. inv_oh and inv_ow are the float32 reciprocals of oh
-// and ow. Launches on `stream`; returns the cudaError_t of the launch.
+// out [b, oh, ow, c] (16-byte aligned). inv_oh and inv_ow are the float32
+// reciprocals of oh and ow. The launch geometry comes from
+// models/common.py's crop_geometry: `bands` blocks a box of `band_rows`
+// output rows each (the last may have fewer), crop_pixels where `pixels` is
+// set (c a multiple of 4 above 4, images 16-byte aligned), else crop_rows.
+// Launches on `stream`; returns a cudaError_t (0 = ok).
 extern "C" int st_crop_resize(const float* images, int t, int h, int w,
                               int c, const float* boxes,
-                              const int64_t* frame_idx, int64_t b, int oh,
-                              int ow, float inv_oh, float inv_ow, float* out,
-                              void* stream) {
-  const int64_t n = b * oh * ow;
-  if (n <= 0) return 0;
-  const int64_t blocks = (n + stcrop::kThreads - 1) / stcrop::kThreads;
-  stcrop::crop_resize_kernel<<<static_cast<unsigned>(blocks),
-                               stcrop::kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      images, t, h, w, c, boxes, frame_idx, n, oh, ow, inv_oh, inv_ow, out);
+                              const int64_t* frame_idx, int b, int oh,
+                              int ow, float inv_oh, float inv_ow,
+                              int band_rows, int bands, int pixels,
+                              float* out, void* stream) {
+  using namespace stcrop;
+  if (b <= 0) return 0;
+  if (oh < 1 || ow < 1 || ow > kMaxOw || c < 1 || band_rows < 1 ||
+      band_rows > kMaxBandRows || bands != (oh + band_rows - 1) / band_rows ||
+      static_cast<int64_t>(b) * bands > 0x7fffffff ||
+      (pixels && (c % 4 || c <= 4)))
+    return cudaErrorInvalidValue;
+  const unsigned blocks = static_cast<unsigned>(b * bands);
+  const size_t smem = sizeof(Taps) * (ow + band_rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ST_CROP_ARGS \
+  images, t, h, w, c, boxes, frame_idx, oh, ow, band_rows, bands, inv_oh, \
+      inv_ow, out
+  if (pixels)
+    crop_pixels<<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else if (c == 1)
+    crop_rows<1><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else if (c == 2)
+    crop_rows<2><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else if (c == 3)
+    crop_rows<3><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else if (c == 4)
+    crop_rows<4><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else
+    crop_rows<0><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+#undef ST_CROP_ARGS
   return static_cast<int>(cudaGetLastError());
 }

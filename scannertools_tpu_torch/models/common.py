@@ -12,15 +12,21 @@ the host at sinks. Each function also takes a leading frame axis
 Two of them are hand-written CUDA kernels, launched for CUDA tensors; CPU
 tensors take their plain torch versions beside them:
 
-  * ``nms`` (kernels/csrc/nms.cu): the greedy keep set as a bitmask NMS —
-    a rank sort, a K x K suppression bitmask, and one warp per frame
-    walking the rows in score order, then the kept rows compacted to the
-    front. ``nms_plain`` sorts with a stable ``torch.sort`` and iterates
-    the JAX package's fixed point; both evaluate the overlap in the written
-    order, so they agree bit for bit.
+  * ``nms`` (kernels/csrc/nms.cu): the greedy keep set as a bitmask NMS,
+    one block per frame: a sort, the suppression bitmask of the valid rows
+    and a walk of the rows 64 at a time, all in shared memory for K up to
+    ``NMS_SHARED_MAX_K`` (above it, and for large K at few frames, the
+    mask lives in device memory: ``nms_geometry``), then the kept rows
+    compacted to the front. ``nms_plain`` sorts with a stable
+    ``torch.sort`` and iterates the JAX package's fixed point; both
+    evaluate the overlap in the written order, so they agree bit for bit.
   * ``crop_and_resize`` (kernels/csrc/crop_resize.cu): bilinear crops as a
-    two-tap gather per axis, y first, with a per-box frame index.
-    ``crop_and_resize_plain`` gathers the same taps in torch.
+    two-tap gather per axis, y first, with a per-box frame index; one block
+    per box and band of output rows. ``crop_and_resize_plain`` gathers the
+    same taps in torch.
+
+The launch geometry of both kernels (``nms_geometry``, ``crop_geometry``)
+is computed here, so the CPU tests can check it.
 
 ``topk_boxes`` is plain torch. Where the JAX package takes ``lax.top_k``
 or ``argsort``, which keep the index order among equal values, the port
@@ -39,8 +45,12 @@ import torch
 from ..kernels import build as _build
 from ..utils.numerics import div, recip
 
-# the bitmask kernel's scratch is K * ceil(K / 64) * 8 bytes a frame
+# the largest K of the device-memory path of nms: its mask is K * ceil(K /
+# 64) * 8 bytes a frame (32 MB at this K)
 NMS_MAX_K = 16384
+# the widest crop: the block keeps a crop's column taps in shared memory
+CROP_MAX_OW = 2048
+_INT32_MAX = 2**31 - 1
 
 
 @contextlib.contextmanager
@@ -127,18 +137,16 @@ def _check_nms(boxes, scores, max_out: int, mode: str, name: str) -> None:
         raise ValueError(f"{name}: max_out must be >= 0, got {max_out}")
 
 
-def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
-              max_out: int, score_thresh: float = 0.0, mode: str = "union"):
-    """Static-shape greedy NMS in plain torch; see ``nms``."""
-    _check_nms(boxes, scores, max_out, mode, "nms_plain")
-    boxes, squeeze = _batched(boxes, 2)
-    scores, _ = _batched(scores, 1)
+def greedy_keep(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
+                score_thresh: float = 0.0, mode: str = "union"):
+    """The greedy keep set of NMS on [T, K, 4] boxes and [T, K] scores ->
+    (boxes, scores in stable descending score order, keep [T, K] bool, sup
+    [T, K, K] bool: valid row j suppresses row i after it)."""
     t, k = scores.shape
     s, order = torch.sort(scores, dim=1, descending=True, stable=True)
     b = boxes.gather(1, order[..., None].expand(t, k, 4))
     valid = s > score_thresh
     idx = torch.arange(k, device=boxes.device)
-    # [t, j, i]: j (earlier in score order, valid) suppresses i
     sup = ((_overlap(b, mode) > iou_thresh) & (idx[:, None] < idx[None, :])
            & valid[..., :, None])
     # the greedy keep set is the unique fixed point of keep_i = valid_i &
@@ -150,6 +158,18 @@ def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
         if torch.equal(nxt, keep):
             break
         keep = nxt
+    return b, s, keep, sup
+
+
+def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
+              max_out: int, score_thresh: float = 0.0, mode: str = "union"):
+    """Static-shape greedy NMS in plain torch; see ``nms``."""
+    _check_nms(boxes, scores, max_out, mode, "nms_plain")
+    boxes, squeeze = _batched(boxes, 2)
+    scores, _ = _batched(scores, 1)
+    t, k = scores.shape
+    b, s, keep, _ = greedy_keep(boxes, scores, iou_thresh, score_thresh,
+                                mode)
     # kept rows to the front in score order; the rest to a discard slot
     n = max(max_out, k)
     dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, n)
@@ -162,12 +182,38 @@ def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     return out_b, out_s, out_v
 
 
+# the largest K whose whole frame fits one block's shared memory (nms.cu's
+# kSharedMaxK, held to its Layout there by a static_assert)
+NMS_SHARED_MAX_K = 1280
+# The one-launch path gives a frame's K^2 / 2 overlaps one SM; the
+# device-memory path spreads them over ceil(K / 64) blocks, at the cost of
+# a second launch and a walk through L2. Timed on an H100 by
+# tools/nms_probe.py: the one-launch path is the faster up to K = 512 at any
+# frame count (equal at 512), and at K = 1000 from about 32 frames a call
+# (at 1-16 frames 0.16 ms against 0.10-0.11).
+NMS_SPREAD_ABOVE_K = 512
+NMS_SPREAD_BELOW_T = 32
+
+
+def nms_geometry(t: int, k: int) -> dict:
+    """The launch geometry of ``nms`` for T frames of K rows: ``path``
+    "shared" (one launch, one block per frame, everything in shared memory,
+    no scratch) up to NMS_SHARED_MAX_K rows, where the frames or K are not
+    better served spread out (above), else "global" (the mask in device
+    memory, two launches); ``words`` the 64-bit mask words of a row."""
+    if not 0 <= k <= NMS_MAX_K:
+        raise ValueError(f"nms: at most {NMS_MAX_K} boxes a frame, got {k}")
+    shared = k <= NMS_SHARED_MAX_K and (k <= NMS_SPREAD_ABOVE_K
+                                        or t >= NMS_SPREAD_BELOW_T)
+    return {"path": "shared" if shared else "global", "words": -(-k // 64)}
+
+
 @functools.cache
 def _nms_lib() -> ctypes.CDLL:
     lib = _build.load("nms")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.st_nms.restype = i
-    lib.st_nms.argtypes = [p, p, i, i, f, f, i, i, p, p, p, p, p, p, p]
+    lib.st_nms.argtypes = [p, p, i, i, f, f, i, i, p, p, p, p, p, p, p, p]
     return lib
 
 
@@ -187,8 +233,9 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     the intersection by the *smaller* area (used by FacenetOutput with
     threshold 0.1, facenet_output_kernel_cpu.cpp:156-190).
 
-    For CUDA tensors one launch of the bitmask kernel serves all T frames;
-    CPU tensors take ``nms_plain``. Where ``max_out`` > K the JAX package
+    For CUDA tensors one launch of the bitmask kernel serves all T frames
+    (two where ``nms_geometry`` spreads the mask over device memory); CPU
+    tensors take ``nms_plain``. Where ``max_out`` > K the JAX package
     returns max_out + 1 rows, its discard slot among them (ROADMAP queue
     3); this returns max_out.
     """
@@ -203,25 +250,31 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     boxes_b, squeeze = _batched(boxes, 2)
     scores_b, _ = _batched(scores, 1)
     t, k = scores_b.shape
-    if k > NMS_MAX_K:
-        raise ValueError(f"nms: at most {NMS_MAX_K} boxes a frame, got {k}")
-    words = -(-k // 64)
+    geo = nms_geometry(t, k)
     dev = boxes.device
     out_b = torch.empty((t, max_out, 4), dtype=torch.float32, device=dev)
     out_s = torch.empty((t, max_out), dtype=torch.float32, device=dev)
     out_v = torch.empty((t, max_out), dtype=torch.bool, device=dev)
     if out_s.numel():
-        sorted_b = torch.empty((t, k, 4), dtype=torch.float32, device=dev)
-        sorted_s = torch.empty((t, k), dtype=torch.float32, device=dev)
-        mask = torch.empty((t, k, words), dtype=torch.int64, device=dev)
+        scratch = [None] * 4  # the shared path needs none
+        if geo["path"] == "global":
+            if t > 65535:
+                raise ValueError(f"nms: at most 65535 frames on the "
+                                 f"device-memory path, got {t}")
+            scratch = [torch.empty(shape, dtype=dtype, device=dev)
+                       for shape, dtype in (((t, k, 4), torch.float32),
+                                            ((t, k), torch.float32),
+                                            ((t, k, geo["words"]),
+                                             torch.int64),
+                                            ((t, 2), torch.int32))]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = _nms_lib().st_nms(
                 boxes_b.data_ptr(), scores_b.data_ptr(), t, k,
                 float(iou_thresh), float(score_thresh),
-                int(mode == "min"), max_out, sorted_b.data_ptr(),
-                sorted_s.data_ptr(), mask.data_ptr(), out_b.data_ptr(),
-                out_s.data_ptr(), out_v.data_ptr(), stream)
+                int(mode == "min"), max_out,
+                *(x if x is None else x.data_ptr() for x in scratch),
+                out_b.data_ptr(), out_s.data_ptr(), out_v.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"nms: CUDA launch failed with error {rc}")
         nms.launches += 1
@@ -317,14 +370,27 @@ def crop_and_resize_plain(images: torch.Tensor, boxes: torch.Tensor,
     return wx0[:, None, :, None] * t0 + wx1[:, None, :, None] * t1
 
 
+def crop_geometry(b: int, oh: int, ow: int, c: int,
+                  images_aligned: bool) -> dict:
+    """The launch geometry of ``crop_and_resize``: ``bands`` blocks a box,
+    each of ``band_rows`` output rows (at most 16, the bands as even as
+    whole rows allow, the last the rest), ``blocks`` in all; ``pixels`` for
+    the channel-vector kernel (C a multiple of 4 above 4 on 16-byte
+    aligned images), else the row kernel."""
+    bands = -(-oh // 16)
+    band_rows = -(-oh // bands)
+    bands = -(-oh // band_rows)
+    return {"band_rows": band_rows, "bands": bands, "blocks": b * bands,
+            "pixels": c % 4 == 0 and c > 4 and images_aligned}
+
+
 @functools.cache
 def _crop_lib() -> ctypes.CDLL:
     lib = _build.load("crop_resize")
-    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
-        ctypes.c_float
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.st_crop_resize.restype = i
-    lib.st_crop_resize.argtypes = [p, i, i, i, i, p, p, i64, i, i, f, f, p,
-                                   p]
+    lib.st_crop_resize.argtypes = [p, i, i, i, i, p, p, i, i, i, f, f, i, i,
+                                   i, p, p]
     return lib
 
 
@@ -344,8 +410,9 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_hw,
     degenerate box (x2 <= x1) samples its x1 column, as the JAX package's
     hat matrices do.
 
-    For CUDA tensors one launch of the crop kernel serves every box; CPU
-    tensors take ``crop_and_resize_plain``."""
+    For CUDA tensors one launch of the crop kernel serves every box (at
+    most CROP_MAX_OW output columns; the index arithmetic inside a frame
+    and a crop is 32-bit); CPU tensors take ``crop_and_resize_plain``."""
     images, frame_idx = _crop_inputs(images, boxes, frame_idx)
     _check_crop(images, boxes, frame_idx, out_hw, "crop_and_resize")
     if images.device.type == "cpu":
@@ -358,6 +425,12 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_hw,
     oh, ow = (int(v) for v in out_hw)
     t, h, w, c = images.shape
     b = boxes.shape[0]
+    geo = crop_geometry(b, oh, ow, c, images.data_ptr() % 16 == 0)
+    if ow > CROP_MAX_OW or max(h * w * c, oh * ow * c,
+                               geo["blocks"]) > _INT32_MAX:
+        raise ValueError(f"crop_and_resize: frames {tuple(images.shape)} or "
+                         f"{b} crops of {oh}x{ow} exceed the kernel's 32-bit "
+                         f"indices or its {CROP_MAX_OW} output columns")
     out = torch.empty((b, oh, ow, c), dtype=torch.float32,
                       device=images.device)
     if out.numel() == 0:
@@ -367,6 +440,7 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_hw,
         rc = _crop_lib().st_crop_resize(
             images.data_ptr(), t, h, w, c, boxes.data_ptr(),
             frame_idx.data_ptr(), b, oh, ow, recip(oh), recip(ow),
+            geo["band_rows"], geo["bands"], int(geo["pixels"]),
             out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"crop_and_resize: CUDA launch failed with error "

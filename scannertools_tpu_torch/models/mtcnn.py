@@ -14,9 +14,9 @@ P-Net probability grid yields its top-K cells; scales concatenate into one
 padded array; R/O-Net stages crop a fixed number of patches and mask out
 invalid rows. Where the JAX package vmaps ``detect_single`` over frames,
 ``detect_batch`` carries a frame axis through every stage, so each NMS
-call is one launch of the ``nms`` kernel for all T frames (8 a chunk at
-640x480: one per pyramid scale, then the cross-scale, R-Net and O-Net
-calls) and each crop stage one launch of ``crop_and_resize``.
+call is one launch of the ``nms`` kernel for all T frames (4 a chunk: the
+pyramid scales' calls batched into one, then the cross-scale, R-Net and
+O-Net calls) and each crop stage one launch of ``crop_and_resize``.
 
 The nets are ``nn.Module``s with facenet-pytorch's parameter names
 (models/porting_maps.py), computing in NCHW on NHWC inputs, in full
@@ -279,7 +279,7 @@ def _stage1_fused(state, x: torch.Tensor, t1: float):
         canvas[:, oy:oy + hs, :ws] = resize_hw(x, 1, hs, ws, "linear")
     prob, reg = apply_net(PNet, state["pnet"], canvas)
 
-    all_boxes, all_scores = [], []
+    cells = []
     for s, hs, ws, oy in layout:
         g0 = oy // 2
         gh = (hs - 12) // 2 + 1
@@ -298,12 +298,31 @@ def _stage1_fused(state, x: torch.Tensor, t1: float):
                         dim=-1)
         b = _calibrate(b, sub_r.gather(1, idx[..., None].expand(t, k, 4)))
         score = torch.where(top_p > t1, top_p, 0.0)
-        bs, ss, vs = nms(b, score, 0.5, k)  # per-scale NMS 0.5
-        all_boxes.append(bs)
-        all_scores.append(torch.where(vs, ss, 0.0))
-    if not all_boxes:
+        cells.append((b, score))
+    if not cells:
         return None
-    return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
+    return _nms_per_scale(cells)
+
+
+def _nms_per_scale(cells):
+    """The per-scale NMS (0.5) of each scale's [T, k_s, 4] boxes and [T,
+    k_s] scores (k_s <= MAX_CELLS_PER_SCALE, scores >= 0), in one ``nms``
+    call: each scale padded to MAX_CELLS_PER_SCALE rows of score 0, which
+    are invalid and come after every real row in the stable order, so the
+    kept rows do not change; the scales stacked on the frame axis. ->
+    (boxes [T, sum k_s, 4], scores [T, sum k_s]), each scale's k_s rows
+    as its own call would give them, with invalid rows' scores 0."""
+    n, t = len(cells), cells[0][1].shape[0]
+    m = MAX_CELLS_PER_SCALE
+    bs, ss, vs = nms(
+        torch.cat([F.pad(b, (0, 0, 0, m - b.shape[1])) for b, _ in cells]),
+        torch.cat([F.pad(s, (0, m - s.shape[1])) for _, s in cells]),
+        0.5, m)
+    bs, ss, vs = bs.view(n, t, m, 4), ss.view(n, t, m), vs.view(n, t, m)
+    ks = [s.shape[1] for _, s in cells]
+    return (torch.cat([bs[i, :, :k] for i, k in enumerate(ks)], dim=1),
+            torch.cat([torch.where(vs[i, :, :k], ss[i, :, :k], 0.0)
+                       for i, k in enumerate(ks)], dim=1))
 
 
 def _crops(x: torch.Tensor, boxes: torch.Tensor, size: int) -> torch.Tensor:

@@ -42,7 +42,7 @@ import torch
 from ..kernels import build as _build
 from ..ops import histogram as H
 from ..utils.framechunk import _YUV_COEFS
-from .hist_compare import frames, time_ms
+from .timing import hist_frames, time_ms
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROBE_SRC = os.path.join(HERE, "hist_probe.cu")
@@ -217,7 +217,7 @@ def main(argv=None) -> int:
                   "blocks_per_sm": blocks})
         for fmt in ("rgb", "i420"):
             for kind in ("random", "flat"):
-                x = frames(kind, fmt, t, h, w)
+                x = hist_frames(kind, fmt, t, h, w)
                 flat = int(kind == "flat")
                 res = {"fmt": fmt, "frames": kind,
                        "carveout_max": bool(carveout), "shape": [t, h, w],

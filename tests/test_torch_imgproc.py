@@ -36,6 +36,7 @@ from scannertools_tpu.registry import get_op as jax_op
 from scannertools_tpu_torch.protobufs import BoundingBox
 from scannertools_tpu_torch.registry import get_op, register_op
 from scannertools_tpu_torch.utils.framechunk import FrameChunk
+from test_torch_jax_decoder import jax_native_decoder
 
 
 @pytest.fixture(scope="module")
@@ -219,6 +220,8 @@ def _run_both(tmp_path, test_video, build, name, perf_kw):
     Client.run on the conftest video; -> (port rows, JAX rows, port
     stream, JAX stream)."""
     results = []
+    if perf_kw.get("ingest", "auto") != "rgb":
+        jax_native_decoder()
     for pkg, kw in ((st, dict(device="cpu")), (jst, {})):
         sc = pkg.Client(db_path=str(tmp_path / f"{pkg.__name__}_db"), **kw)
         video = pkg.NamedVideoStream(sc, "test1", path=test_video["path"])

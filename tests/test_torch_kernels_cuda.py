@@ -10,10 +10,15 @@ held to its plain version in both warp modes at ragged sizes: odd sides,
 levels of at most 16 rows (where the shift-warp's bound is below
 warp_px) and a 2-row level. ``nms`` and ``crop_and_resize`` are held to
 their plain versions on the card and on the CPU: seeded box clouds with
-tied scores, K = 1 and K not a multiple of 64, max_out above and below K,
-the alternating chain, all-invalid frames; crops up- and downsampled, on
-and past the frame's edge, degenerate, from several frames in one launch.
-Inputs are made from a seed with numpy.
+tied scores, K = 1 and K not a multiple of 64, K at the walk's tile edges
+(63-65, 127-129), at the one-launch path's shared-memory limit (1280) and
+one past it, and on the device-memory path (2048, 4096), max_out above K
+and below the kept count, alternating chains within and across tiles,
+all-invalid frames; crops up- and downsampled, on and past the frame's
+edge, degenerate, from several frames in one launch, with C = 1, 3, 4 and
+256 channels (both crop kernels), output widths 227 and 1, rows that start
+off a 16-byte boundary, and frames that do. Inputs are made from a seed
+with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -278,6 +283,55 @@ def test_nms_kernel_chain_and_invalid_frames(cuda_device):
     assert got[2][0].sum() == n // 2 and not got[2][1].any()
 
 
+def _dense_case(rng, t, k, span=40.0):
+    boxes = _box_cloud(rng, t, k, span)
+    scores = rng.uniform(0, 1, (t, k)).astype(np.float32)
+    scores[:, ::6] = 0.5       # ties
+    scores[:, 1::3] = 0.0      # invalid rows among the valid ones
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+@pytest.mark.parametrize("k", [63, 64, 65, 127, 128, 129, 1280, 1281, 2048,
+                               4096])
+def test_nms_kernel_tile_edges_and_both_paths(cuda_device, k):
+    """K at the walk's tile edges, at the one-launch path's limit and one
+    past it, and on the device-memory path; dense clouds, so suppression
+    crosses tiles; max_out above K and below the kept count."""
+    # at the limit, enough frames for the one-launch path
+    t = 3 if k <= 256 else (MC.NMS_SPREAD_BELOW_T if k == 1280 else 2)
+    boxes, scores = _dense_case(np.random.default_rng(k), t, k,
+                                span=40.0 * max(1.0, (k / 128) ** 0.5))
+    b, s = boxes.to(cuda_device), scores.to(cuda_device)
+    assert MC.nms_geometry(t, k)["path"] == ("shared" if k <= 1280 else
+                                             "global")
+    for mode in ("union", "min"):  # the plain version on the card
+        kept = int(MC.nms_plain(b, s, 0.3, k, 0.0, mode)[2].sum(
+            dim=1).min())
+        for max_out in (k + 3, max(1, kept // 2)):
+            before = MC.nms.launches
+            got = MC.nms(b, s, 0.3, max_out, 0.0, mode)
+            assert MC.nms.launches == before + 1
+            for g, p in zip(got, MC.nms_plain(b, s, 0.3, max_out, 0.0,
+                                              mode)):
+                assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("n", [150, 1500])
+def test_nms_kernel_chain_across_tiles(cuda_device, n):
+    """The alternating chain across tiles, on both paths: every tile's
+    first row depends on the last kept row of the tile before it."""
+    chain = np.stack([np.arange(n) * 6.0, np.zeros(n),
+                      np.arange(n) * 6.0 + 10, np.full(n, 10.0)],
+                     axis=1).astype(np.float32)
+    boxes = torch.from_numpy(np.stack([chain, chain]))
+    scores = torch.from_numpy(np.stack([np.linspace(1.0, 0.5, n),
+                                        np.full(n, 0.5)]).astype(np.float32))
+    got = MC.nms(boxes.to(cuda_device), scores.to(cuda_device), 0.2, n)
+    for g, p in zip(got, MC.nms_plain(boxes, scores, 0.2, n)):
+        assert torch.equal(g.cpu(), p)
+    assert int(got[2][0].sum()) == -(-n // 2)
+
+
 def test_nms_kernel_refuses_bad_inputs(cuda_device):
     b = torch.zeros((2, 8, 4), device=cuda_device)
     s = torch.zeros((2, 8), device=cuda_device)
@@ -368,3 +422,49 @@ except RuntimeError:
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert "RAISED" in res.stdout, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 256])
+@pytest.mark.parametrize("ow", [227, 1])
+def test_crop_and_resize_kernel_channels_and_widths(cuda_device, c, ow):
+    """Both crop kernels (rows for C <= 4, channel vectors for C = 256) at
+    output widths 227 (rows of 227 * C values: most start off a 16-byte
+    boundary) and 1, and on frames that start off a 16-byte boundary
+    (then C = 256 takes the row kernel)."""
+    rng = np.random.default_rng(29 + c + ow)
+    t, h, w, b, oh = 2, 37, 45, 5, 9
+    frames = torch.from_numpy(rng.uniform(-1, 255, (t, h, w, c)).astype(
+        np.float32))
+    xy = rng.uniform(-4, 40, (b, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(-2, 30, (b, 2))], axis=1).astype(np.float32))
+    fi = torch.from_numpy(rng.integers(0, t, b).astype(np.int64))
+    want = MC.crop_and_resize_plain(frames, boxes, (oh, ow), fi)
+    dev = frames.to(cuda_device)
+    off = torch.empty(dev.numel() + 1, device=cuda_device)[1:].view(
+        dev.shape)
+    off.copy_(dev)  # the same frames, 4 bytes past a 16-byte boundary
+    for imgs in (dev, off):
+        before = MC.crop_and_resize.launches
+        got = MC.crop_and_resize(imgs, boxes.to(cuda_device), (oh, ow),
+                                 fi.to(cuda_device))
+        assert MC.crop_and_resize.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+def test_crop_and_resize_kernel_fpn_map(cuda_device):
+    """A detection model's RoI crop: 64 boxes of one 256-channel map at
+    7x7 and 14x14."""
+    rng = np.random.default_rng(31)
+    fmap = torch.from_numpy(rng.standard_normal((1, 50, 84, 256)).astype(
+        np.float32))
+    xy = rng.uniform(0, 70, (64, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(1, 40, (64, 2))], axis=1).astype(np.float32))
+    fi = torch.zeros(64, dtype=torch.int64)
+    for size in (7, 14):
+        got = MC.crop_and_resize(fmap.to(cuda_device),
+                                 boxes.to(cuda_device), (size, size),
+                                 fi.to(cuda_device))
+        assert torch.equal(got.cpu(), MC.crop_and_resize_plain(
+            fmap, boxes, (size, size), fi))

@@ -45,6 +45,7 @@ import scannertools_tpu as jst
 import scannertools_tpu_torch as st
 from scannertools_tpu.ops import optical_flow as J
 from scannertools_tpu_torch.ops import optical_flow as P
+from test_torch_jax_decoder import jax_native_decoder
 
 
 def _t(*arrays):
@@ -250,6 +251,8 @@ def test_optical_flow_op_dtypes():
 def _flow_stream(pkg, db, texture_video, sample, ingest, name="flow",
                  **flow_kw):
     kw = dict(device="cpu") if pkg is st else {}
+    if pkg is jst and ingest != "rgb":
+        jax_native_decoder()
     sc = pkg.Client(db_path=db, **kw)
     video = pkg.NamedVideoStream(sc, "tex", path=texture_video["path"])
     frame = sc.io.Input([video])
