@@ -120,6 +120,17 @@ FACE_FRAMES, FACE_H, FACE_W, FACE_CHUNK = 32, 480, 640, 16
 # frames between 0.5 and 0.6 (the reference's 0.45, 0.6, 0.7 keep none):
 # 0.5 at every stage keeps rows at each one (12-17 faces a frame)
 FACE_THRESHOLDS = (0.5, 0.5, 0.5)
+# phase 5: object detection on DET_FRAMES frames of FACE_W x FACE_H (the
+# face phase's drifting blobs) in chunks of DET_CHUNK; Faster R-CNN reads
+# them resized to FRCNN_W x FRCNN_H (conv5_3 37x50: 16,650 anchors, the
+# top 2048 to nms, 300 RoIs a frame)
+DET_FRAMES, DET_CHUNK = 32, 8
+FRCNN_W, FRCNN_H = 800, 600
+FRCNN_MEAN = (102.9801, 115.9465, 122.7717)
+# the port's seeded weights give near-uniform class probabilities (about
+# 1/81), so the reference's 0.7 keeps nothing; 0.016 keeps a few boxes a
+# frame after the decode's NMS (the phase logs how many)
+FRCNN_SCORE = 0.016
 # card against CPU, float32 nets: largest difference over largest value
 CARD_CPU_RTOL = 1e-4
 CROP_LIBRARY_ATOL = 0.1
@@ -369,16 +380,18 @@ def check_flow_update():
     return record
 
 
-def nms_bound(boxes, scores, max_out: int, score_thresh: float) -> tuple:
+def nms_bound(boxes, scores, max_out: int, score_thresh: float,
+              index: bool = False) -> tuple:
     """The bound of one nms call on these inputs: boxes and scores read,
-    boxes, scores and valid written once; the operations its data needs:
+    boxes, scores and valid (and the int64 index) written once; the
+    operations its data needs:
     K * ceil(log2 K) comparisons a frame for a stable sort of the scores
     (what the function needs, not the kernel's K * K rank sort), 5 a box
     for its area and 14 an overlap (4 max/min, 2 differences, 2 clamps, a
     product, a sum and a difference, a division, 2 comparisons) for each
     pair after a valid row."""
     t, k = scores.shape
-    nbytes = t * k * (16 + 4) + t * max_out * (16 + 4 + 1)
+    nbytes = t * k * (16 + 4) + t * max_out * (16 + 4 + 1 + 8 * index)
     # valid rows lead the score order: the v of a frame pair with the rows
     # after them
     per_frame_valid = (scores > score_thresh).sum(dim=1).tolist()
@@ -404,8 +417,13 @@ def check_nms():
         nonlocal worst
         b = torch.from_numpy(boxes).cuda()
         s = torch.from_numpy(scores).cuda()
-        got = MC.nms(b, s, iou, max_out, score_thresh, mode)
-        want = MC.nms_plain(b, s, iou, max_out, score_thresh, mode)
+        got = MC.nms(b, s, iou, max_out, score_thresh, mode, index=True)
+        want = MC.nms_plain(b, s, iou, max_out, score_thresh, mode,
+                            index=True)
+        if not all(torch.equal(g, w) for g, w in zip(
+                got[:3], MC.nms(b, s, iou, max_out, score_thresh, mode))):
+            raise AssertionError(f"nms with the index disagrees with nms "
+                                 f"without it at {tags}")
         err = max(float((g.float() - w.float()).abs().max())
                   if g.numel() else 0.0 for g, w in zip(got, want))
         worst = max(worst, err)
@@ -454,30 +472,45 @@ def check_nms():
 
     timings = {}
     # the face path's calls of a chunk (the five pyramid scales' calls in
-    # one), then the detection models': a Mask R-CNN FPN level, Faster
-    # R-CNN's proposals
-    for name, t, k, max_out, mode in (
-            ("cross_scale", FACE_CHUNK, 256, 256, "union"),
-            ("per_scale", 5 * FACE_CHUNK, 128, 128, "union"),
-            ("rnet", FACE_CHUNK, 96, 96, "union"),
-            ("onet", FACE_CHUNK, 64, 32, "min"),
-            ("fpn_level", 1, 1000, 1000, "union"),
-            ("rpn", 2, 2048, 300, "union")):
-        boxes = torch.from_numpy(box_cloud(rng, t, k)).cuda()
-        scores = torch.from_numpy(rng.uniform(
-            0, 1, (t, k)).astype(np.float32)).cuda()
-        bound, by = nms_bound(boxes, scores, max_out, 0.0)
+    # one), then the detection models': SSD's class-shifted call of a
+    # chunk with the kept index (normalized boxes shifted by 4 a label),
+    # Faster R-CNN's proposals of a chunk at 800x600, a Mask R-CNN FPN
+    # level, the proposals of two frames
+    for name, t, k, max_out, mode, iou, index in (
+            ("cross_scale", FACE_CHUNK, 256, 256, "union", 0.7, False),
+            ("per_scale", 5 * FACE_CHUNK, 128, 128, "union", 0.7, False),
+            ("rnet", FACE_CHUNK, 96, 96, "union", 0.7, False),
+            ("onet", FACE_CHUNK, 64, 32, "min", 0.7, False),
+            ("ssd", DET_CHUNK, 512, 100, "union", 0.6, True),
+            ("rpn_chunk", DET_CHUNK, 2048, 300, "union", 0.7, False),
+            ("fpn_level", 1, 1000, 1000, "union", 0.7, False),
+            ("rpn", 2, 2048, 300, "union", 0.7, False)):
+        if name == "ssd":
+            cloud = box_cloud(rng, t, k, 1.0, lo=0.02, hi=0.5)
+            cloud += rng.integers(1, 91, (t, k, 1)) * 4.0
+        else:
+            cloud = box_cloud(rng, t, k, 800.0 if "rpn" in name else 600.0)
+        cloud = cloud.astype(np.float32)
+        scores = rng.uniform(0, 1, (t, k)).astype(np.float32)
+        # every timed call is held to the plain version first
+        check(cloud, scores, iou, max_out, 0.0, mode, call=name)
+        boxes = torch.from_numpy(cloud).cuda()
+        scores = torch.from_numpy(scores).cuda()
+        bound, by = nms_bound(boxes, scores, max_out, 0.0, index)
         timings[name] = {
-            "ms": time_ms(lambda: MC.nms(boxes, scores, 0.7, max_out, 0.0,
-                                         mode)),
-            "device_ms": time_ms(lambda: MC.nms(boxes, scores, 0.7, max_out,
-                                                0.0, mode), fence=True),
+            "ms": time_ms(lambda: MC.nms(boxes, scores, iou, max_out, 0.0,
+                                         mode, index)),
+            "device_ms": time_ms(lambda: MC.nms(boxes, scores, iou, max_out,
+                                                0.0, mode, index),
+                                 fence=True),
             "plain_ms": time_ms(lambda: MC.nms_plain(
-                boxes, scores, 0.7, max_out, 0.0, mode), reps=5, warm=1),
+                boxes, scores, iou, max_out, 0.0, mode, index), reps=5,
+                warm=1),
             "bound_ms": bound, "bound_by": by}
         log({"timing": "nms", "call": name, "shape": [t, k],
-             "max_out": max_out, "mode": mode,
-             "kept": int(MC.nms(boxes, scores, 0.7, max_out, 0.0,
+             "max_out": max_out, "mode": mode, "index": index,
+             "path": MC.nms_geometry(t, k)["path"],
+             "kept": int(MC.nms(boxes, scores, iou, max_out, 0.0,
                                 mode)[2].sum()), **timings[name]})
     torch.cuda.synchronize()
     record = dict(timings["cross_scale"])
@@ -581,25 +614,40 @@ def check_crop():
                                          f"its plain version: C {c}, width "
                                          f"{ow}, {base}: {err}")
 
-    # FPN level P2 of an 800x1344 canvas (stride 4), 256 channels
+    # FPN level P2 of an 800x1344 canvas (stride 4), 256 channels; Faster
+    # R-CNN's conv5_3 maps of a chunk at 800x600 (stride 16), 512 channels
     p2 = torch.from_numpy(rng.standard_normal((1, 200, 336, 256)).astype(
         np.float32)).cuda()
+    c5 = torch.from_numpy(rng.standard_normal(
+        (DET_CHUNK, FRCNN_H // 16, FRCNN_W // 16, 512)).astype(
+            np.float32)).cuda()
     timings = {}
     for name, images, k, size in (("facenet", frames, MAX_FACES, 160),
                                   ("gender", frames, MAX_FACES, 227),
                                   ("rnet", frames, 96, 24),
                                   ("onet", frames, 64, 48),
+                                  ("roi_align_c512", c5, 300, 7),
                                   ("roi_7", p2, 1000, 7),
                                   ("roi_14", p2, 1000, 14)):
         t, h, w, c = images.shape
         boxes = torch.from_numpy(
             box_cloud(rng, t, k) if images is frames else
-            box_cloud(rng, t, k, float(min(h, w)), lo=2.0, hi=60.0)).cuda()
+            box_cloud(rng, t, k, float(min(h, w)), lo=2.0,
+                      hi=min(60.0, float(min(h, w))))).cuda()
         fi = torch.arange(t).cuda().repeat_interleave(k)
         flat = boxes.reshape(-1, 4).contiguous()
         lib_out, lib_call = grid_sample_crops(images, boxes, size, size,
                                               MC._sample_positions)
         got = MC.crop_and_resize(images, flat, (size, size), fi)
+        if images is c5:  # the RoIAlign's call: held to the plain version
+            err = float((got - MC.crop_and_resize_plain(
+                images, flat, (size, size), fi)).abs().max())
+            worst = max(worst, err)
+            log({"check": "crop_and_resize", "call": name,
+                 "shape": [t * k, size, size, c], "max_abs_err": err})
+            if err != 0.0:
+                raise AssertionError(f"crop_and_resize disagrees with its "
+                                     f"plain version at {name}: {err}")
         lib_err = float((lib_out - got).abs().max())
         # the positions' round trip through [-1, 1] moves a sample by a few
         # float32 ulps of 640 px (6.1e-5 each), times pixel steps up to 255
@@ -1392,6 +1440,311 @@ def _face_rows_equal(name: str, got, want) -> bool:
     return got == want
 
 
+# ------------------------------------------------------------ phase 5
+
+
+DET_GRAPHS = ("objects", "frcnn")
+# launches of each kernel per chunk: SSD one nms for the chunk's frames;
+# Faster R-CNN one nms (the proposals) and one crop (the RoIAlign)
+DET_LAUNCHES_PER_CHUNK = {
+    "objects": {"nms": 1, "crop_and_resize": 0},
+    "frcnn": {"nms": 1, "crop_and_resize": 1},
+}
+
+
+def write_detection_weights(d: str) -> dict:
+    """The port's seeded weights of SSD and Faster R-CNN, written by the
+    port's save_params in the JAX package's layout -> {model: npz path}."""
+    from scannertools_tpu_torch.models import faster_rcnn, ssd, weights
+
+    paths = {}
+    for name, lib in (("ssd", ssd), ("faster_rcnn", faster_rcnn)):
+        paths[name] = os.path.join(d, f"{name}.npz")
+        weights.save_params(paths[name], lib.to_flax(lib.init_params(0)))
+    return paths
+
+
+def detection_graph(sc, stream, name: str, weights: dict):
+    """The output columns and stream names of detection graph ``name``."""
+    frame = sc.io.Input([stream])
+    if name == "objects":
+        return [sc.ops.DetectObjects(frame=frame,
+                                     weights_path=weights["ssd"])], \
+            ["objects"]
+    pre = sc.ops.NNInput(frame=frame, input_width=FRCNN_W,
+                         input_height=FRCNN_H, mean_colors=FRCNN_MEAN)
+    cls_prob, rois, fc7 = sc.ops.FasterRCNN(
+        input=pre, weights_path=weights["faster_rcnn"])
+    boxes, feats = sc.ops.FasterRCNNOutput(
+        cls_prob=cls_prob, rois=rois, fc7=fc7, score_threshold=FRCNN_SCORE)
+    return [boxes, feats], ["frcnn_boxes", "frcnn_feats"]
+
+
+def run_detection_graphs(db: str, weights: dict, device: str = "cuda",
+                         runs: int = 1):
+    """The two detection graphs in turn through Client.run, each ``runs``
+    times in a row -> ({graph: [loaded rows of each output]}, {graph:
+    [launches of each run]}, {graph: result}). The first run of a graph
+    reads and converts its npz; a later one finds the weights cached, so
+    its frames/s is the warm rate."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.models import common as MC
+
+    stream_cls = synthetic_stream_class(
+        DET_FRAMES, FACE_H, FACE_W,
+        lambda: FaceDecoder(DET_FRAMES, FACE_H, FACE_W))
+    sc = st.Client(db_path=db, device=device)
+    video = stream_cls(sc, "det_video")
+    rows, launches, results = {}, {}, {}
+    for name in DET_GRAPHS:
+        cols, names = detection_graph(sc, video, name, weights)
+        outs = [st.NamedStream(sc, n) for n in names]
+        perf = st.PerfParams.manual(work_packet_size=DET_CHUNK, ingest="rgb")
+        launches[name], per_run = [], []
+        for _ in range(runs):
+            before = sc.profiler.totals()
+            MC.nms.launches = MC.crop_and_resize.launches = 0
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc.run(sc.io.Output(cols, [tuple(outs)]), perf,
+                   cache_mode=st.CacheMode.Overwrite)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[name].append(
+                {"nms": MC.nms.launches,
+                 "crop_and_resize": MC.crop_and_resize.launches})
+            per_run.append({
+                "seconds": seconds, "frames_per_s": DET_FRAMES / seconds,
+                "totals_s": {k: v - before.get(k, 0.0)
+                             for k, v in sc.profiler.totals().items()}})
+        rows[name] = [list(o.load()) for o in outs]
+        results[name] = {"run": "detection_pipeline", "graph": name,
+                         "frames": DET_FRAMES, "height": FACE_H,
+                         "width": FACE_W, "launches": launches[name],
+                         "runs": per_run}
+    return rows, launches, results
+
+
+def plain_detection_graphs(db: str, weights: dict):
+    """The same graphs on the card with nms and crop_and_resize replaced by
+    their plain versions -> {graph: rows}."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import faster_rcnn as PR
+    from scannertools_tpu_torch.models import ssd as PS
+
+    with mock.patch.object(PS, "nms", MC.nms_plain), \
+            mock.patch.object(PR, "nms", MC.nms_plain), \
+            mock.patch.object(PR, "crop_and_resize",
+                              MC.crop_and_resize_plain):
+        rows, launches, _ = run_detection_graphs(db, weights)
+    if any(n for runs in launches.values() for lc in runs
+           for n in lc.values()):
+        raise AssertionError(f"the plain detection graphs launched kernels: "
+                             f"{launches}")
+    return rows
+
+
+def _detection_rows_equal(got, want) -> bool:
+    """Box lists equal, and feature arrays equal in shape and bytes."""
+    def same(a, b):
+        if isinstance(a, np.ndarray):
+            return a.shape == np.shape(b) and np.array_equal(a, b)
+        return a == b
+    return len(got) == len(want) and all(
+        len(g) == len(w) and all(same(a, b) for a, b in zip(g, w))
+        for g, w in zip(got, want))
+
+
+def detection_card_vs_cpu() -> dict:
+    """SSD's outputs on seeded 300x300 inputs, and Faster R-CNN's conv5_3
+    map, RPN logits (a 224x224 input) and head probabilities (seeded
+    pooled RoIs), with the port's seeded weights on the card and on the
+    CPU: no discrete decision intervenes."""
+    import torch
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import faster_rcnn as PR
+    from scannertools_tpu_torch.models import ssd as PS
+
+    rng = np.random.default_rng(7)
+    x_ssd = torch.from_numpy(rng.uniform(-1, 1, (2, 300, 300, 3)).astype(
+        np.float32))
+    x_vgg = torch.from_numpy(rng.uniform(-120, 130, (1, 3, 224, 224))
+                             .astype(np.float32))
+    pooled = torch.from_numpy(rng.standard_normal(
+        (16, PR.POOL * PR.POOL * PR.FEAT)).astype(np.float32))
+
+    def frcnn_parts(net, x, p):
+        feat = net.vgg(x)
+        rpn = torch.relu(net.rpn_conv(feat))
+        head = torch.relu(net.fc7(torch.relu(net.fc6(p))))
+        return (feat, net.rpn_cls_score(rpn), net.rpn_bbox_pred(rpn),
+                torch.softmax(net.cls_score(head), dim=-1))
+
+    ssd_state = PS.init_params(0)
+    net = PR.FasterRCNN()
+    net.load_state_dict(PR.init_params(0))
+    with torch.no_grad(), MC.full_f32():
+        cpu = {"ssd": MC.apply_net(PS.SSDMobileNetV1, ssd_state, x_ssd),
+               "faster_rcnn": frcnn_parts(net, x_vgg, pooled)}
+        card = {"ssd": MC.apply_net(
+                    PS.SSDMobileNetV1,
+                    {k: v.cuda() for k, v in ssd_state.items()},
+                    x_ssd.cuda()),
+                "faster_rcnn": frcnn_parts(net.cuda(), x_vgg.cuda(),
+                                           pooled.cuda())}
+    out = {}
+    for name in cpu:
+        for i, (c, g) in enumerate(zip(cpu[name], card[name])):
+            err = float((g.cpu() - c).abs().max())
+            scale = float(c.abs().max())
+            out[f"{name}_{i}"] = {"max_abs_diff": err, "max_abs": scale}
+            if not err <= CARD_CPU_RTOL * scale:
+                raise AssertionError(f"{name} output {i}: card and CPU "
+                                     f"differ by {err} (largest {scale})")
+    return out
+
+
+def detection_stage_ms(weights: dict) -> dict:
+    """One DET_CHUNK-frame chunk through both forwards on the card, each
+    stage bracketed by CUDA events on the compute stream -> {stage: ms
+    summed over its calls}, the host decode's ms, and the kernels' device
+    time by torch.profiler in a further call."""
+    from unittest import mock
+
+    import torch
+
+    from scannertools_tpu_torch.models import faster_rcnn as PR
+    from scannertools_tpu_torch.models import ssd as PS
+    from scannertools_tpu_torch.ops import detection_decode as PD
+    from scannertools_tpu_torch.ops import faces as PFO
+    from scannertools_tpu_torch.ops import nn_generic as PN
+    from scannertools_tpu_torch.ops import objects as PO
+
+    frames = torch.from_numpy(FaceDecoder(DET_FRAMES, FACE_H, FACE_W)
+                              .read_frames(range(DET_CHUNK))).cuda()
+    ssd_state = {k: v.cuda() for k, v in PFO._get_params(
+        "ssd", weights["ssd"]).items()}
+    frcnn_state = {k: v.cuda() for k, v in PFO._get_params(
+        "faster_rcnn", weights["faster_rcnn"]).items()}
+    arrays = {}
+
+    def forwards():
+        PO.ssd_forward(None, ssd_state, frames)
+        x = PN.nn_input(None, frames, FRCNN_W, FRCNN_H, FRCNN_MEAN)
+        arrays["frcnn"] = PN.faster_rcnn_forward(None, frcnn_state, x)
+
+    forwards()  # warm: index maps, taps, cuDNN plans
+    marks = []
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((stage, start, end))
+            return out
+        return run
+
+    patches = [(PS, "resize_hw", "ssd_resize"),
+               (PS, "apply_net", "ssd_net"),
+               (PS, "_prefilter", "ssd_prefilter"),
+               (PS, "nms", "ssd_nms"),
+               (PO, "ssd_forward", "ssd_forward"),
+               (PN, "nn_input", "frcnn_nn_input"),
+               (PR.VGG16, "forward", "frcnn_vgg16"),
+               (PR, "propose_boxes", "frcnn_proposals"),
+               (PR, "topk_stable", "frcnn_topk"),
+               (PR, "nms", "frcnn_nms"),
+               (PR, "crop_and_resize", "frcnn_roi_align"),
+               (PN, "faster_rcnn_forward", "frcnn_forward")]
+    with contextlib.ExitStack() as stack:
+        for obj, name, stage in patches:
+            stack.enter_context(mock.patch.object(
+                obj, name, timed(stage, getattr(obj, name))))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forwards()
+        end.record()
+        torch.cuda.synchronize()
+    out = {"chunk": start.elapsed_time(end)}
+    for stage, s, e in marks:
+        out[stage] = out.get(stage, 0.0) + s.elapsed_time(e)
+    host = [a.cpu().numpy() for a in arrays["frcnn"]]
+    t0 = time.perf_counter()
+    PD.faster_rcnn_output(None, *host, score_threshold=FRCNN_SCORE)
+    out["frcnn_decode_host"] = (time.perf_counter() - t0) * 1e3
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        forwards()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out["kernels_ms"] = busy if busy > 0 else "not measured"
+    out["frames"] = DET_CHUNK
+    return out
+
+
+def run_detection_pipeline(db: str):
+    """Phase 5 -> {kernel: launches over the two graphs}; every check
+    raises."""
+    weights = write_detection_weights(db)
+    # twice: the first run's frames/s holds the npz read, the second's not
+    rows, launches, results = run_detection_graphs(
+        os.path.join(db, "det"), weights, runs=2)
+    plain = plain_detection_graphs(os.path.join(db, "det_plain"), weights)
+    chunks = -(-DET_FRAMES // DET_CHUNK)
+    for name in DET_GRAPHS:
+        want = {k: n * chunks
+                for k, n in DET_LAUNCHES_PER_CHUNK[name].items()}
+        results[name]["rows_equal_plain"] = all(
+            _detection_rows_equal(g, w)
+            for g, w in zip(rows[name], plain[name]))
+        log(results[name])
+        if any(lc != want for lc in launches[name]):
+            raise AssertionError(f"{name}: launches {launches[name]}, want "
+                                 f"{want} each run")
+        if not results[name]["rows_equal_plain"]:
+            raise AssertionError(f"{name}: rows differ from the plain "
+                                 "kernels' run")
+    (objects,) = rows["objects"]
+    if len(objects) != DET_FRAMES or any(
+            len(f) != 100 or not all(1 <= b.label <= 90 for b in f)
+            for f in objects):
+        raise AssertionError("DetectObjects: not 100 rows of labels 1..90 "
+                             "in every frame")
+    boxes, feats = rows["frcnn"]
+    counts = [len(f) for f in boxes]
+    with_boxes = sum(1 for n in counts if n)
+    if len(boxes) != DET_FRAMES or with_boxes <= DET_FRAMES // 2:
+        raise AssertionError(f"Faster R-CNN boxes in {with_boxes} of "
+                             f"{len(boxes)} frames")
+    for bl, fl in zip(boxes, feats):
+        fl = np.asarray(fl)
+        if fl.shape != (len(bl), 4096) or not all(
+                1 <= b.label <= 80 and b.score > FRCNN_SCORE for b in bl):
+            raise AssertionError("Faster R-CNN boxes and features disagree")
+    log({"frcnn_boxes_per_frame": counts, "frames_with_boxes": with_boxes,
+         "card_vs_cpu": detection_card_vs_cpu()})
+    log({"detection_stages_ms": detection_stage_ms(weights),
+         "shape": [DET_CHUNK, FACE_H, FACE_W],
+         "frcnn_input": [FRCNN_H, FRCNN_W]})
+    # the main path's count: each graph's first run
+    return {k: sum(launches[g][0][k] for g in DET_GRAPHS)
+            for k in ("nms", "crop_and_resize")}
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1418,9 +1771,12 @@ def main() -> int:
         launches = run_pipeline(db)
         flow_launches = run_flow_pipeline(db)
         face_launches = run_face_pipeline(db)
+        det_launches = run_detection_pipeline(db)
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
+    log({"launches_by_path": {"faces": face_launches,
+                              "detection": det_launches}})
     kernels = [
         {"name": "hist_rgb", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/histogram.cu",
@@ -1441,12 +1797,14 @@ def main() -> int:
         {"name": "nms", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/nms.cu",
          "replaces": "scannertools_tpu/models/common.py:33",
-         "launches": face_launches["nms"], **records["nms"],
+         "launches": face_launches["nms"] + det_launches["nms"],
+         **records["nms"],
          "library_ms": None},
         {"name": "crop_and_resize", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/crop_resize.cu",
          "replaces": "scannertools_tpu/models/common.py:105",
-         "launches": face_launches["crop_and_resize"],
+         "launches": (face_launches["crop_and_resize"]
+                      + det_launches["crop_and_resize"]),
          **records["crop_and_resize"]},
     ]
     log({"kernels": kernels})

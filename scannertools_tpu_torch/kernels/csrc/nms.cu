@@ -17,10 +17,10 @@
 //
 //  * one launch, one block of 1024 threads per frame, everything in shared
 //    memory (nms_shared), for K up to the largest whose layout (Layout
-//    below: the sorted boxes and scores, and a region that holds the sort
-//    keys and then the mask, K * ceil(K / 64) * 8 bytes) fits the 227 KB a
-//    block may have: K <= kSharedMaxK = 1280 (a static_assert holds the
-//    two together). The wrapper allocates only the outputs.
+//    below: the sorted boxes and source rows, and a region that holds the
+//    sort keys and then the mask, K * ceil(K / 64) * 8 bytes) fits the
+//    227 KB a block may have: K <= kSharedMaxK = 1280 (a static_assert
+//    holds the two together). The wrapper allocates only the outputs.
 //  * sort: a bitonic sort in shared memory of 64-bit keys (the score
 //    mapped to an order-preserving integer, descending, then the row
 //    index), which is the stable descending order of jnp.argsort(-scores)
@@ -45,7 +45,12 @@
 //    and so the JAX fixed point.
 //  * write-out: each kept row's output slot is the kept count before its
 //    tile plus the kept bits before it in the tile; slots past the kept
-//    count are zeros.
+//    count are zeros. The sort keys carry each row's source index in their
+//    low 32 bits; the sorted rows keep it in place of the sorted scores
+//    (the kept scores are read back from the input through it), so the
+//    kept boxes' source rows come out too where the caller asks for them
+//    (-1 in rows not kept), at no cost in shared memory: K <= 1280 still
+//    fits. The device-memory path below does the same through its scratch.
 //
 // Above K = 1280, and for K above 512 at fewer than 32 frames (where one SM
 // a frame leaves the card idle: models/common.py's nms_geometry, from
@@ -93,7 +98,7 @@ struct Layout {
   int keys;     // sort keys: the next power of two >= max(K, 1)
   int boxes;    // float4 [K], sorted
   int region;   // uint64: keys [keys] while sorting, then mask [K][words]
-  int scores;   // float [K], sorted
+  int index;    // int [K]: the sorted rows' source rows
   int kept;     // uint64 [words]
   int removed;  // uint64 [words]
   int prefix;   // int [words]
@@ -108,8 +113,8 @@ __host__ __device__ constexpr Layout layout(int k) {
   l.boxes = 0;
   l.region = 16 * k;
   const int region = 8 * (k * l.words > l.keys ? k * l.words : l.keys);
-  l.scores = l.region + region;
-  l.kept = (l.scores + 4 * k + 7) & ~7;
+  l.index = l.region + region;
+  l.kept = (l.index + 4 * k + 7) & ~7;
   l.removed = l.kept + 8 * l.words;
   l.prefix = l.removed + 8 * l.words;
   l.misc = l.prefix + 4 * l.words;
@@ -287,20 +292,25 @@ __device__ int walk(const u64* mask, int stride, int v, u64* kept,
   return *total;
 }
 
-// The kept rows (boxes sb, scores ss in score order) to the front of the
-// frame's outputs; the rest of the max_out rows zeros.
-__device__ void write_out(const float4* sb, const float* ss, int v,
-                          const u64* kept, const int* prefix, int total,
-                          int max_out, float4* ob, float* os, uint8_t* ov) {
+// The kept rows (boxes sb in score order) to the front of the frame's
+// outputs; the rest of the max_out rows zeros (index -1). src holds the
+// sorted rows' source rows: the kept scores are read from the frame's input
+// scores s through them, and the rows go to oi unless it is null.
+__device__ void write_out(const float4* sb, const int* src, const float* s,
+                          int v, const u64* kept, const int* prefix,
+                          int total, int max_out, float4* ob, float* os,
+                          uint8_t* ov, int64_t* oi) {
   for (int r = threadIdx.x; r < v; r += blockDim.x) {
     const u64 bits = kept[r / kTile];
     const int q = r % kTile;
     if (!((bits >> q) & 1)) continue;
     const int p = prefix[r / kTile] + __popcll(bits & ((1ull << q) - 1));
     if (p < max_out) {
+      const int i = src[r];
       ob[p] = sb[r];
-      os[p] = ss[r];
+      os[p] = s[i];
       ov[p] = 1;
+      if (oi) oi[p] = i;
     }
   }
   for (int p = min(total, max_out) + threadIdx.x; p < max_out;
@@ -308,6 +318,7 @@ __device__ void write_out(const float4* sb, const float* ss, int v,
     ob[p] = make_float4(0.f, 0.f, 0.f, 0.f);
     os[p] = 0.f;
     ov[p] = 0;
+    if (oi) oi[p] = -1;
   }
 }
 
@@ -315,12 +326,12 @@ __global__ void __launch_bounds__(kSharedThreads) nms_shared(
     const float* __restrict__ boxes, const float* __restrict__ scores, int k,
     float iou_thresh, float score_thresh, int mode_min, int max_out,
     float* __restrict__ out_boxes, float* __restrict__ out_scores,
-    uint8_t* __restrict__ out_valid) {
+    uint8_t* __restrict__ out_valid, int64_t* __restrict__ out_index) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(k);
   float4* sb = reinterpret_cast<float4*>(smem + L.boxes);
   u64* region = reinterpret_cast<u64*>(smem + L.region);
-  float* ss = reinterpret_cast<float*>(smem + L.scores);
+  int* si = reinterpret_cast<int*>(smem + L.index);
   u64* kept = reinterpret_cast<u64*>(smem + L.kept);
   u64* removed = reinterpret_cast<u64*>(smem + L.removed);
   int* prefix = reinterpret_cast<int*>(smem + L.prefix);
@@ -333,7 +344,7 @@ __global__ void __launch_bounds__(kSharedThreads) nms_shared(
   for (int r = threadIdx.x; r < k; r += blockDim.x) {
     const int i = static_cast<int>(region[r] & 0xffffffffu);
     sb[r] = b[i];
-    ss[r] = s[i];
+    si[r] = i;
   }
   __syncthreads();  // the keys are read: the region becomes the mask
   const int tiles = (v + kTile - 1) / kTile;
@@ -348,16 +359,18 @@ __global__ void __launch_bounds__(kSharedThreads) nms_shared(
   __syncthreads();
   const int total = walk<false>(region, tiles, v, kept, removed, prefix,
                                 misc + 1);
-  write_out(sb, ss, v, kept, prefix, total, max_out,
+  write_out(sb, si, s, v, kept, prefix, total, max_out,
             reinterpret_cast<float4*>(out_boxes) + frame * max_out,
-            out_scores + frame * max_out, out_valid + frame * max_out);
+            out_scores + frame * max_out, out_valid + frame * max_out,
+            out_index ? out_index + frame * max_out : nullptr);
 }
 
 // counts [t][2]: the frame's valid rows, and the ticket of its mask blocks.
+// sorted_src [t][k]: the sorted rows' source rows.
 __global__ void __launch_bounds__(kSortThreads) nms_sort_global(
     const float* __restrict__ boxes, const float* __restrict__ scores, int k,
     float score_thresh, float* __restrict__ sorted_boxes,
-    float* __restrict__ sorted_scores, int* __restrict__ counts) {
+    int* __restrict__ sorted_src, int* __restrict__ counts) {
   extern __shared__ u64 keys[];
   __shared__ int count;
   const int64_t frame = blockIdx.x;
@@ -369,7 +382,7 @@ __global__ void __launch_bounds__(kSortThreads) nms_sort_global(
   for (int r = threadIdx.x; r < k; r += blockDim.x) {
     const int i = static_cast<int>(keys[r] & 0xffffffffu);
     sb[r] = b[i];
-    sorted_scores[frame * k + r] = s[i];
+    sorted_src[frame * k + r] = i;
   }
   if (threadIdx.x == 0) {
     counts[2 * frame] = v;
@@ -378,11 +391,12 @@ __global__ void __launch_bounds__(kSortThreads) nms_sort_global(
 }
 
 __global__ void __launch_bounds__(kMaskThreads) nms_mask_walk_global(
-    const float* __restrict__ sorted_boxes,
-    const float* __restrict__ sorted_scores, int k, int words,
-    float iou_thresh, int mode_min, int max_out, u64* __restrict__ mask,
+    const float* __restrict__ scores, const float* __restrict__ sorted_boxes,
+    const int* __restrict__ sorted_src, int k, int words, float iou_thresh,
+    int mode_min, int max_out, u64* __restrict__ mask,
     int* __restrict__ counts, float* __restrict__ out_boxes,
-    float* __restrict__ out_scores, uint8_t* __restrict__ out_valid) {
+    float* __restrict__ out_scores, uint8_t* __restrict__ out_valid,
+    int64_t* __restrict__ out_index) {
   __shared__ u64 kept[kMaxWords], removed[kMaxWords];
   __shared__ int prefix[kMaxWords];
   __shared__ int total, last;
@@ -412,9 +426,11 @@ __global__ void __launch_bounds__(kMaskThreads) nms_mask_walk_global(
   if (!last) return;
   __threadfence();
   const int n_kept = walk<true>(m, words, v, kept, removed, prefix, &total);
-  write_out(sb, sorted_scores + frame * k, v, kept, prefix, n_kept, max_out,
+  write_out(sb, sorted_src + frame * k, scores + frame * k, v, kept, prefix,
+            n_kept, max_out,
             reinterpret_cast<float4*>(out_boxes) + frame * max_out,
-            out_scores + frame * max_out, out_valid + frame * max_out);
+            out_scores + frame * max_out, out_valid + frame * max_out,
+            out_index ? out_index + frame * max_out : nullptr);
 }
 
 // Lets `fn` take up to `bytes` of dynamic shared memory (once a device and
@@ -435,16 +451,19 @@ cudaError_t allow_smem(const void* fn, int slot, int bytes) {
 
 // boxes [t, k, 4] and scores [t, k] float32 (boxes 16-byte aligned);
 // outputs: boxes [t, max_out, 4], scores [t, max_out] float32, valid
-// [t, max_out] uint8. With sorted_boxes null, one launch of nms_shared (k
-// at most kSharedMaxK); otherwise the two launches of the device-memory
-// path, with scratch sorted_boxes [t, k, 4], sorted_scores [t, k] float32,
-// mask [t, k, ceil(k / 64)] uint64 and counts [t, 2] int32. Launches on
-// `stream`; returns a cudaError_t (0 = ok).
+// [t, max_out] uint8 and, unless out_index is null, the kept rows' source
+// rows [t, max_out] int64 (-1 where none is kept). With sorted_boxes null,
+// one launch of nms_shared (k at most kSharedMaxK); otherwise the two
+// launches of the device-memory path, with scratch sorted_boxes [t, k, 4]
+// float32, sorted_src [t, k] int32 (source rows), mask [t, k, ceil(k / 64)]
+// uint64 and counts [t, 2] int32. Launches on `stream`;
+// returns a cudaError_t (0 = ok).
 extern "C" int st_nms(const float* boxes, const float* scores, int t, int k,
                       float iou_thresh, float score_thresh, int mode_min,
-                      int max_out, float* sorted_boxes, float* sorted_scores,
+                      int max_out, float* sorted_boxes, int* sorted_src,
                       unsigned long long* mask, int* counts, float* out_boxes,
-                      float* out_scores, uint8_t* out_valid, void* stream) {
+                      float* out_scores, uint8_t* out_valid,
+                      long long* out_index, void* stream) {
   using namespace stnms;
   if (t <= 0 || max_out <= 0) return 0;
   if (k < 0 || k > kMaxWords * kTile) return cudaErrorInvalidValue;
@@ -457,7 +476,8 @@ extern "C" int st_nms(const float* boxes, const float* scores, int t, int k,
       return err;
     nms_shared<<<t, kSharedThreads, layout(k).bytes, st>>>(
         boxes, scores, k, iou_thresh, score_thresh, mode_min, max_out,
-        out_boxes, out_scores, out_valid);
+        out_boxes, out_scores, out_valid,
+        reinterpret_cast<int64_t*>(out_index));
     return static_cast<int>(cudaGetLastError());
   }
   if (t > 65535) return cudaErrorInvalidValue;
@@ -465,11 +485,12 @@ extern "C" int st_nms(const float* boxes, const float* scores, int t, int k,
                         8 * kMaxWords * kTile)))
     return err;
   nms_sort_global<<<t, kSortThreads, 8 * ceil_pow2(k > 1 ? k : 1), st>>>(
-      boxes, scores, k, score_thresh, sorted_boxes, sorted_scores, counts);
+      boxes, scores, k, score_thresh, sorted_boxes, sorted_src, counts);
   const int words = (k + kTile - 1) / kTile;
   nms_mask_walk_global<<<dim3(words > 0 ? words : 1, t), kMaskThreads, 0,
                          st>>>(
-      sorted_boxes, sorted_scores, k, words, iou_thresh, mode_min, max_out,
-      mask, counts, out_boxes, out_scores, out_valid);
+      scores, sorted_boxes, sorted_src, k, words, iou_thresh, mode_min,
+      max_out, mask, counts, out_boxes, out_scores, out_valid,
+      reinterpret_cast<int64_t*>(out_index));
   return static_cast<int>(cudaGetLastError());
 }

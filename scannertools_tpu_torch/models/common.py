@@ -17,7 +17,8 @@ tensors take their plain torch versions beside them:
     and a walk of the rows 64 at a time, all in shared memory for K up to
     ``NMS_SHARED_MAX_K`` (above it, and for large K at few frames, the
     mask lives in device memory: ``nms_geometry``), then the kept rows
-    compacted to the front. ``nms_plain`` sorts with a stable
+    compacted to the front, with each kept row's source row where the
+    caller asks for it (``index=True``). ``nms_plain`` sorts with a stable
     ``torch.sort`` and iterates the JAX package's fixed point; both
     evaluate the overlap in the written order, so they agree bit for bit.
   * ``crop_and_resize`` (kernels/csrc/crop_resize.cu): bilinear crops as a
@@ -65,6 +66,16 @@ def full_f32():
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
         yield
+
+
+def batch_norm(bn: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Eval-mode BatchNorm over dim 1 on its running statistics, in flax's
+    order of operations: ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    return (x - bn.running_mean.view(shape)) * mul.view(shape) \
+        + bn.bias.view(shape)
 
 
 @functools.cache
@@ -140,8 +151,9 @@ def _check_nms(boxes, scores, max_out: int, mode: str, name: str) -> None:
 def greedy_keep(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
                 score_thresh: float = 0.0, mode: str = "union"):
     """The greedy keep set of NMS on [T, K, 4] boxes and [T, K] scores ->
-    (boxes, scores in stable descending score order, keep [T, K] bool, sup
-    [T, K, K] bool: valid row j suppresses row i after it)."""
+    (order [T, K] int64: the source rows in stable descending score order,
+    scores in that order, keep [T, K] bool, sup [T, K, K] bool: valid row j
+    suppresses row i after it)."""
     t, k = scores.shape
     s, order = torch.sort(scores, dim=1, descending=True, stable=True)
     b = boxes.gather(1, order[..., None].expand(t, k, 4))
@@ -158,28 +170,31 @@ def greedy_keep(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
         if torch.equal(nxt, keep):
             break
         keep = nxt
-    return b, s, keep, sup
+    return order, s, keep, sup
 
 
 def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
-              max_out: int, score_thresh: float = 0.0, mode: str = "union"):
+              max_out: int, score_thresh: float = 0.0, mode: str = "union",
+              index: bool = False):
     """Static-shape greedy NMS in plain torch; see ``nms``."""
     _check_nms(boxes, scores, max_out, mode, "nms_plain")
     boxes, squeeze = _batched(boxes, 2)
     scores, _ = _batched(scores, 1)
     t, k = scores.shape
-    b, s, keep, _ = greedy_keep(boxes, scores, iou_thresh, score_thresh,
-                                mode)
+    order, s, keep, _ = greedy_keep(boxes, scores, iou_thresh, score_thresh,
+                                    mode)
+    b = boxes.gather(1, order[..., None].expand(t, k, 4))
     # kept rows to the front in score order; the rest to a discard slot
     n = max(max_out, k)
     dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, n)
-    out_b = b.new_zeros((t, n + 1, 4)).scatter_(
-        1, dest[..., None].expand(t, k, 4), b)[:, :max_out]
-    out_s = s.new_zeros((t, n + 1)).scatter_(1, dest, s)[:, :max_out]
-    out_v = keep.new_zeros((t, n + 1)).scatter_(1, dest, keep)[:, :max_out]
-    if squeeze:
-        return out_b[0], out_s[0], out_v[0]
-    return out_b, out_s, out_v
+    out = [b.new_zeros((t, n + 1, 4)).scatter_(
+               1, dest[..., None].expand(t, k, 4), b)[:, :max_out],
+           s.new_zeros((t, n + 1)).scatter_(1, dest, s)[:, :max_out],
+           keep.new_zeros((t, n + 1)).scatter_(1, dest, keep)[:, :max_out]]
+    if index:
+        out.append(order.new_full((t, n + 1), -1).scatter_(
+            1, dest, order)[:, :max_out])
+    return tuple(o[0] for o in out) if squeeze else tuple(out)
 
 
 # the largest K whose whole frame fits one block's shared memory (nms.cu's
@@ -213,12 +228,14 @@ def _nms_lib() -> ctypes.CDLL:
     lib = _build.load("nms")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.st_nms.restype = i
-    lib.st_nms.argtypes = [p, p, i, i, f, f, i, i, p, p, p, p, p, p, p, p]
+    lib.st_nms.argtypes = [p, p, i, i, f, f, i, i, p, p, p, p, p, p, p, p,
+                           p]
     return lib
 
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
-        max_out: int, score_thresh: float = 0.0, mode: str = "union"):
+        max_out: int, score_thresh: float = 0.0, mode: str = "union",
+        index: bool = False):
     """Static-shape greedy NMS.
 
     boxes: [K, 4] or [T, K, 4] float32; scores: [K] or [T, K] float32, not
@@ -227,7 +244,10 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     bool): the rows kept by sequential greedy suppression in stable
     descending score order (a row is suppressed when a kept row before it
     overlaps it by more than ``iou_thresh``), compacted to the front, the
-    rest zeros.
+    rest zeros. With ``index`` a fourth output, [.., max_out] int64: each
+    kept row's position in the input (-1 in rows not kept), so that
+    callers can gather what they carry beside the boxes (SSD's labels and
+    unshifted boxes).
 
     mode="min" reproduces the reference's `best_nms` variant that divides
     the intersection by the *smaller* area (used by FacenetOutput with
@@ -242,7 +262,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     _check_nms(boxes, scores, max_out, mode, "nms")
     if boxes.device.type == "cpu":
         return nms_plain(boxes, scores, iou_thresh, max_out, score_thresh,
-                         mode)
+                         mode, index)
     if boxes.device.type != "cuda":
         raise ValueError(f"nms: unsupported device {boxes.device}")
     if boxes.data_ptr() % 16:
@@ -255,6 +275,8 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     out_b = torch.empty((t, max_out, 4), dtype=torch.float32, device=dev)
     out_s = torch.empty((t, max_out), dtype=torch.float32, device=dev)
     out_v = torch.empty((t, max_out), dtype=torch.bool, device=dev)
+    out_i = torch.empty((t, max_out), dtype=torch.int64, device=dev) \
+        if index else None
     if out_s.numel():
         scratch = [None] * 4  # the shared path needs none
         if geo["path"] == "global":
@@ -263,7 +285,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
                                  f"device-memory path, got {t}")
             scratch = [torch.empty(shape, dtype=dtype, device=dev)
                        for shape, dtype in (((t, k, 4), torch.float32),
-                                            ((t, k), torch.float32),
+                                            ((t, k), torch.int32),
                                             ((t, k, geo["words"]),
                                              torch.int64),
                                             ((t, 2), torch.int32))]
@@ -274,13 +296,13 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
                 float(iou_thresh), float(score_thresh),
                 int(mode == "min"), max_out,
                 *(x if x is None else x.data_ptr() for x in scratch),
-                out_b.data_ptr(), out_s.data_ptr(), out_v.data_ptr(), stream)
+                out_b.data_ptr(), out_s.data_ptr(), out_v.data_ptr(),
+                None if out_i is None else out_i.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"nms: CUDA launch failed with error {rc}")
         nms.launches += 1
-    if squeeze:
-        return out_b[0], out_s[0], out_v[0]
-    return out_b, out_s, out_v
+    out = (out_b, out_s, out_v) + ((out_i,) if index else ())
+    return tuple(o[0] for o in out) if squeeze else out
 
 
 nms.launches = 0

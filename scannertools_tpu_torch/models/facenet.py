@@ -36,18 +36,10 @@ from torch import nn
 from ..utils.numerics import mean
 from . import porting_maps
 from . import weights as weights_lib
-from .common import _skeleton, apply_net
+from .common import _skeleton, apply_net, batch_norm
 
 EMBEDDING_SIZE = 128  # face_embedding.py:12
 BN_EPS = 1e-3
-
-
-def _bn(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm over dim 1 in flax's order of operations."""
-    shape = (1, -1) + (1,) * (x.dim() - 2)
-    mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-    return (x - bn.running_mean.view(shape)) * mul.view(shape) \
-        + bn.bias.view(shape)
 
 
 class BasicConv2d(nn.Module):
@@ -59,7 +51,7 @@ class BasicConv2d(nn.Module):
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x):
-        return torch.relu(_bn(self.bn, self.conv(x)))
+        return torch.relu(batch_norm(self.bn, self.conv(x)))
 
 
 class Block35(nn.Module):
@@ -186,7 +178,7 @@ class InceptionResnetV1(nn.Module):
         x = self.mixed_7a(self.repeat_2(x))
         x = self.block8(self.repeat_3(x))
         x = mean(x, (2, 3))  # global average pool
-        x = _bn(self.last_bn, self.last_linear(x))
+        x = batch_norm(self.last_bn, self.last_linear(x))
         return x / (torch.sqrt((x * x).sum(dim=-1, keepdim=True)) + 1e-10)
 
 

@@ -8,3 +8,6 @@ from . import misc  # noqa: F401
 from . import optical_flow  # noqa: F401
 from . import shot_detection  # noqa: F401
 from . import faces  # noqa: F401  (after imgproc: models import it)
+from . import detection_decode  # noqa: F401
+from . import objects  # noqa: F401  (after faces: weights loader)
+from . import nn_generic  # noqa: F401

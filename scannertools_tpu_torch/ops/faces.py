@@ -36,8 +36,10 @@ import torch
 from .. import protobufs
 from ..graph import NodeOutput, OpNode
 from ..models import facenet as facenet_lib
+from ..models import faster_rcnn as faster_rcnn_lib
 from ..models import gender as gender_lib
 from ..models import mtcnn as mtcnn_lib
+from ..models import ssd as ssd_lib
 from ..models import weights as weights_lib
 from ..models.common import crop_and_resize
 from ..registry import register_composite, register_op
@@ -47,7 +49,11 @@ _MODEL_CACHE: Dict[Any, Any] = {}
 
 MAX_FACES = mtcnn_lib.MAX_FACES
 
-_MODELS = {"mtcnn": mtcnn_lib, "facenet": facenet_lib, "gender": gender_lib}
+# name -> the model's module (init_params, from_flax, to_flax), for every
+# op that loads weights (the detection ops of objects.py and nn_generic.py
+# too)
+_MODELS = {"mtcnn": mtcnn_lib, "facenet": facenet_lib, "gender": gender_lib,
+           "ssd": ssd_lib, "faster_rcnn": faster_rcnn_lib}
 
 
 def _get_params(model: str, weights_path: Optional[str]):

@@ -20,12 +20,15 @@ same for every checkout. ``--kernels`` picks among:
     [16, 256] (max_out 256), one pyramid scale [16, 128] and the five
     scales batched [80, 128], R-Net [16, 96], O-Net [16, 64] ("min",
     max_out 32); and at the detection models' calls: [1, 1000] (max_out
-    1000, a Mask R-CNN FPN level) and [2, 2048] (max_out 300, Faster
-    R-CNN's proposals), IoU 0.7; with the rows each keeps;
+    1000, a Mask R-CNN FPN level), [2, 2048] and [8, 2048] (max_out 300,
+    Faster R-CNN's proposals of two frames and of an 8-frame chunk) and
+    [8, 512] (max_out 100, SSD's chunk), IoU 0.7; with the rows each keeps;
   * ``crop``: ``crop_and_resize`` from 16 frames of 640x480x3 at FaceNet's
     512 crops of 160x160, gender's 512 of 227x227, R-Net's 1536 of 24x24,
     O-Net's 1024 of 48x48; and 1000 boxes of a P2 map [1, 200, 336, 256]
-    (an 800x1344 canvas at stride 4) at 7x7 and 14x14. Beside each,
+    (an 800x1344 canvas at stride 4) at 7x7 and 14x14; and Faster R-CNN's
+    RoIAlign, 300 boxes a frame of 8 conv5_3 maps [8, 37, 50, 512] (an
+    800x600 input at stride 16) at 7x7. Beside each,
     ``F.grid_sample`` at the same sample positions (``library_ms``; the
     same call in every checkout).
 
@@ -54,6 +57,8 @@ NMS_CASES = (  # name, frames, K, max_out, mode
     ("onet", 16, 64, 32, "min"),
     ("fpn_level", 1, 1000, 1000, "union"),
     ("rpn", 2, 2048, 300, "union"),
+    ("ssd_chunk", 8, 512, 100, "union"),
+    ("rpn_chunk", 8, 2048, 300, "union"),
 )
 CROP_CASES = (  # name, boxes a frame, output side, source
     ("facenet", 32, 160, "frames"),
@@ -62,6 +67,7 @@ CROP_CASES = (  # name, boxes a frame, output side, source
     ("onet", 64, 48, "frames"),
     ("roi_7", 1000, 7, "p2"),
     ("roi_14", 1000, 14, "p2"),
+    ("roi_align_c512", 300, 7, "c5"),
 )
 
 
@@ -127,6 +133,8 @@ def main(argv=None) -> int:
             "frames": torch.from_numpy(rng.uniform(0, 255, (16, 480, 640, 3))
                                        .astype(np.float32)).cuda(),
             "p2": torch.from_numpy(rng.standard_normal((1, 200, 336, 256))
+                                   .astype(np.float32)).cuda(),
+            "c5": torch.from_numpy(rng.standard_normal((8, 37, 50, 512))
                                    .astype(np.float32)).cuda()}
         for name, k, size, src in CROP_CASES:
             images = sources[src]
@@ -134,7 +142,8 @@ def main(argv=None) -> int:
             if src == "frames":
                 boxes = box_cloud(rng, t, k)
             else:
-                boxes = box_cloud(rng, t, k, min(h, w), 2.0, 60.0)
+                boxes = box_cloud(rng, t, k, min(h, w), 2.0,
+                                  min(60.0, min(h, w)))
             boxes = torch.from_numpy(boxes).cuda()
             flat = boxes.reshape(-1, 4).contiguous()
             fi = torch.arange(t).cuda().repeat_interleave(k)

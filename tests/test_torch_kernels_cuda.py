@@ -332,6 +332,57 @@ def test_nms_kernel_chain_across_tiles(cuda_device, n):
     assert int(got[2][0].sum()) == -(-n // 2)
 
 
+@pytest.mark.parametrize("t,k,max_out", [(8, 512, 100), (3, 64, 80),
+                                         (32, 1000, 1000), (3, 1000, 100),
+                                         (2, 2048, 300)])
+def test_nms_kernel_index_matches_plain(cuda_device, t, k, max_out):
+    """The kept source rows on both paths (SSD's [8, 512] call, K = 1000
+    shared and in device memory, the proposals' [2, 2048]), max_out above
+    and below the kept count, tied scores and an all-invalid frame; the
+    boxes, scores and valid flags equal the call without the index."""
+    boxes, scores = _dense_case(np.random.default_rng(31 + k), t, k,
+                                span=40.0 * max(1.0, (k / 128) ** 0.5))
+    scores[-1] = 0.0
+    b, s = boxes.to(cuda_device), scores.to(cuda_device)
+    before = MC.nms.launches
+    got = MC.nms(b, s, 0.6, max_out, 0.0, index=True)
+    assert MC.nms.launches == before + 1
+    want = MC.nms_plain(boxes, scores, 0.6, max_out, 0.0, index=True)
+    for g, p in zip(got, want):
+        assert torch.equal(g.cpu(), p)
+    for g, p in zip(got[:3], MC.nms(b, s, 0.6, max_out, 0.0)):
+        assert torch.equal(g, p)
+    assert (got[3][-1] == -1).all() and (got[3][0] >= 0).any()
+
+
+def test_detection_forwards_launch_once_a_chunk(cuda_device):
+    """SSD's detect launches one nms for all frames; the Faster R-CNN
+    forward one nms and one crop; both give the outputs of the same
+    forward on the card with the kernels' plain versions."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import faster_rcnn as PR
+    from scannertools_tpu_torch.models import ssd as PS
+
+    rng = np.random.default_rng(41)
+    frames = torch.from_numpy(rng.uniform(0, 255, (3, 64, 96, 3)).astype(
+        np.float32)).to(cuda_device)
+    for lib, args in ((PS, ()), (PR, (8, 64))):
+        state = {k: v.to(cuda_device) for k, v in lib.init_params(0).items()}
+        run = (lambda: PS.detect(state, frames)) if lib is PS else \
+            (lambda: PR.apply(state, frames, *args))
+        n0, c0 = MC.nms.launches, MC.crop_and_resize.launches
+        got = run()
+        assert MC.nms.launches == n0 + 1
+        assert MC.crop_and_resize.launches == c0 + (lib is PR)
+        with mock.patch.object(lib, "nms", MC.nms_plain), \
+                mock.patch.object(PR, "crop_and_resize",
+                                  MC.crop_and_resize_plain):
+            want = run()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_nms_kernel_refuses_bad_inputs(cuda_device):
     b = torch.zeros((2, 8, 4), device=cuda_device)
     s = torch.zeros((2, 8), device=cuda_device)
@@ -381,6 +432,24 @@ def test_crop_and_resize_kernel_matches_plain(cuda_device, t, h, w, b,
                                                      fid))
     assert torch.equal(got.cpu(), MC.crop_and_resize_plain(
         frames, boxes, (size, size), fi))
+
+
+def test_crop_and_resize_kernel_roi_align_c512(cuda_device):
+    """Faster R-CNN's RoIAlign: 7x7 crops of a 512-channel stride-16 map
+    (channel vectors), RoIs in map pixels from several frames, zero boxes
+    among them (the proposals' padding rows)."""
+    rng = np.random.default_rng(23)
+    maps = torch.from_numpy(rng.standard_normal((3, 6, 9, 512)).astype(
+        np.float32)).to(cuda_device)
+    xy = rng.uniform(0, 8, (40, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(0, 6, (40, 2))], 1)
+    boxes[::9] = 0.0
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(cuda_device)
+    fi = torch.from_numpy(rng.integers(0, 3, 40)).to(cuda_device)
+    assert MC.crop_geometry(40, 7, 7, 512, True)["pixels"]
+    got = MC.crop_and_resize(maps, boxes, (7, 7), fi)
+    assert torch.equal(got, MC.crop_and_resize_plain(maps, boxes, (7, 7),
+                                                     fi))
 
 
 def test_crop_and_resize_kernel_refuses_bad_inputs(cuda_device):
