@@ -73,6 +73,31 @@ norm within 1e-5, the launches 4 ``nms`` and 2-3 crops a chunk. FaceNet
 embeddings and gender logits of seeded crops on the card are held to the
 CPU's, and one chunk's time is split by stage with CUDA events.
 
+Phase 1 also holds ``crop_and_resize_levels`` (the crop kernel with an FPN
+level a box) to its plain version with ``==`` at Mask R-CNN's calls of an
+8-frame chunk: 8000 boxes at 7x7 and 800 at 14x14 from the four levels
+P2..P5 of 800x1088 canvases at C = 256, boxes on every level, past the
+edges and zero boxes, and times it beside four ``F.grid_sample`` calls
+(one a level); and Mask R-CNN's two ``nms`` calls (the five levels'
+proposals [40, 1000] and the class-shifted finals [8, 1000] with the
+index) on both paths, timed on each.
+
+Phase 5 drives object detection on 32 640x480 frames in chunks of 8:
+``DetectObjects`` (SSD) and ``NNInput`` → ``FasterRCNN`` →
+``FasterRCNNOutput``, each graph twice (the first run with the npz read),
+rows equal to the plain-patched runs, launches, card against CPU, a
+per-stage split.
+
+Phase 6 drives Mask R-CNN the same way: ``MaskRCNNDetectObjects``
+R-50-FPN over the same frames (800x1088 canvases, the reference's TEST
+caps) on the port's seeded weights with the RPN's and the box head's output
+layers scaled, written as npz; twice, rows (boxes, scores, labels, mask
+canvases) equal to a run with ``nms`` and ``crop_and_resize_levels``
+patched to their plain versions, 2 ``nms`` and 2 level crops a chunk,
+detections in most frames, masks of a quarter of the frame; one
+X-101-32x8d-FPN chunk the same way; the trunk and heads on the card against
+the CPU; one chunk split by stage.
+
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
 ``{"kernels": [...]}``, the card's name and power limit from nvidia-smi,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit
@@ -94,7 +119,9 @@ import time
 import numpy as np
 
 from scannertools_tpu_torch.tools.timing import (box_cloud, card,
-                                                 grid_sample_crops, time_ms)
+                                                 grid_sample_crops,
+                                                 grid_sample_level_crops,
+                                                 level_boxes, time_ms)
 
 N_FRAMES, HEIGHT, WIDTH, FPS = 480, 1080, 1920, 24.0
 CUTS = (120, 240, 360)
@@ -131,6 +158,29 @@ FRCNN_MEAN = (102.9801, 115.9465, 122.7717)
 # 1/81), so the reference's 0.7 keeps nothing; 0.016 keeps a few boxes a
 # frame after the decode's NMS (the phase logs how many)
 FRCNN_SCORE = 0.016
+# phase 6: Mask R-CNN on the detection phase's frames (DET_FRAMES of
+# 640x480 in chunks of DET_CHUNK): 800x1067 letterboxes on 800x1088
+# canvases (P2 200x272: 163,200 anchors a frame), the reference's TEST caps
+# (1000 a level, 1000 proposals, 100 finals at score 0.05)
+MRCNN_CANVAS = (800, 1088)
+MRCNN_ARCH = "R-50-FPN"
+MRCNN_X_ARCH = "X-101-32x8d-FPN"  # the reference's default checkpoint
+# the port's seeded weights with these output layers scaled, so that the
+# RPN's scores and deltas and the box head's probabilities and deltas
+# spread as a trained model's do: unscaled, the seeded trunk's activations
+# (a few hundred) put most sigmoids at 0 or 1 and push each refined box to
+# the canvas's edge
+MRCNN_HEAD_SCALES = (("rpn.cls_logits", 0.02), ("rpn.bbox_pred", 0.002),
+                     ("box.cls_score", 0.05), ("box.bbox_pred", 0.002))
+# the decode's confidence filter: the reference's 0.5 keeps 0-2 of these
+# weights' finals a frame (scores about 0.2-0.65); 0.25 keeps some masks in
+# every frame
+MRCNN_CONFIDENCE = 0.25
+# launches a chunk: nms for the proposals and for the finals; the level
+# crop at 7x7 (RoIAlign) and 14x14 (masks)
+MRCNN_LAUNCHES_PER_CHUNK = {"nms": 2, "crop_and_resize": 0,
+                            "crop_and_resize_levels": 2}
+MRCNN_CPU_MIN_SIZE = 320  # card against CPU: one frame at a 320x448 canvas
 # card against CPU, float32 nets: largest difference over largest value
 CARD_CPU_RTOL = 1e-4
 CROP_LIBRARY_ATOL = 0.1
@@ -409,6 +459,7 @@ def check_nms():
     import torch
 
     from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.tools.nms_probe import path as forced_path
 
     rng = np.random.default_rng(2)
     worst = 0.0
@@ -475,42 +526,64 @@ def check_nms():
     # one), then the detection models': SSD's class-shifted call of a
     # chunk with the kept index (normalized boxes shifted by 4 a label),
     # Faster R-CNN's proposals of a chunk at 800x600, a Mask R-CNN FPN
-    # level, the proposals of two frames
-    for name, t, k, max_out, mode, iou, index in (
-            ("cross_scale", FACE_CHUNK, 256, 256, "union", 0.7, False),
-            ("per_scale", 5 * FACE_CHUNK, 128, 128, "union", 0.7, False),
-            ("rnet", FACE_CHUNK, 96, 96, "union", 0.7, False),
-            ("onet", FACE_CHUNK, 64, 32, "min", 0.7, False),
-            ("ssd", DET_CHUNK, 512, 100, "union", 0.6, True),
-            ("rpn_chunk", DET_CHUNK, 2048, 300, "union", 0.7, False),
-            ("fpn_level", 1, 1000, 1000, "union", 0.7, False),
-            ("rpn", 2, 2048, 300, "union", 0.7, False)):
+    # level, the proposals of two frames; Mask R-CNN's two calls of an
+    # 8-frame chunk at 800x1088 (the five levels' proposals, and the finals
+    # on boxes shifted by 2 * 1088 a label, scores above 0.05, with the
+    # index), each also timed on the other path, forced
+    for name, t, k, max_out, mode, iou, index, thresh in (
+            ("cross_scale", FACE_CHUNK, 256, 256, "union", 0.7, False, 0.0),
+            ("per_scale", 5 * FACE_CHUNK, 128, 128, "union", 0.7, False,
+             0.0),
+            ("rnet", FACE_CHUNK, 96, 96, "union", 0.7, False, 0.0),
+            ("onet", FACE_CHUNK, 64, 32, "min", 0.7, False, 0.0),
+            ("ssd", DET_CHUNK, 512, 100, "union", 0.6, True, 0.0),
+            ("rpn_chunk", DET_CHUNK, 2048, 300, "union", 0.7, False, 0.0),
+            ("fpn_level", 1, 1000, 1000, "union", 0.7, False, 0.0),
+            ("rpn", 2, 2048, 300, "union", 0.7, False, 0.0),
+            ("mrcnn_proposals", 5 * DET_CHUNK, 1000, 1000, "union", 0.7,
+             False, 0.0),
+            ("mrcnn_final", DET_CHUNK, 1000, 100, "union", 0.5, True,
+             0.05)):
         if name == "ssd":
             cloud = box_cloud(rng, t, k, 1.0, lo=0.02, hi=0.5)
             cloud += rng.integers(1, 91, (t, k, 1)) * 4.0
+        elif name.startswith("mrcnn"):
+            cloud = box_cloud(rng, t, k, 1088.0, lo=4.0, hi=400.0)
+            if name == "mrcnn_final":
+                cloud += rng.integers(1, 81, (t, k, 1)) * 2.0 * 1088
         else:
             cloud = box_cloud(rng, t, k, 800.0 if "rpn" in name else 600.0)
         cloud = cloud.astype(np.float32)
-        scores = rng.uniform(0, 1, (t, k)).astype(np.float32)
-        # every timed call is held to the plain version first
-        check(cloud, scores, iou, max_out, 0.0, mode, call=name)
+        scores = rng.uniform(0, 1 if thresh == 0.0 else 0.3,
+                             (t, k)).astype(np.float32)
+        # every timed call is held to the plain version first, on both
+        # paths where it is timed on both
+        paths = [None] + (["shared", "global"] if name.startswith("mrcnn")
+                          else [])
+        for p in paths:
+            with forced_path(p):
+                check(cloud, scores, iou, max_out, thresh, mode, call=name,
+                      path=MC.nms_geometry(t, k)["path"])
         boxes = torch.from_numpy(cloud).cuda()
         scores = torch.from_numpy(scores).cuda()
-        bound, by = nms_bound(boxes, scores, max_out, 0.0, index)
+        bound, by = nms_bound(boxes, scores, max_out, thresh, index)
+
+        def call():
+            return MC.nms(boxes, scores, iou, max_out, thresh, mode, index)
+
         timings[name] = {
-            "ms": time_ms(lambda: MC.nms(boxes, scores, iou, max_out, 0.0,
-                                         mode, index)),
-            "device_ms": time_ms(lambda: MC.nms(boxes, scores, iou, max_out,
-                                                0.0, mode, index),
-                                 fence=True),
+            "ms": time_ms(call), "device_ms": time_ms(call, fence=True),
             "plain_ms": time_ms(lambda: MC.nms_plain(
-                boxes, scores, iou, max_out, 0.0, mode, index), reps=5,
+                boxes, scores, iou, max_out, thresh, mode, index), reps=5,
                 warm=1),
             "bound_ms": bound, "bound_by": by}
+        for p in paths[1:]:
+            with forced_path(p):
+                timings[name][f"device_ms.{p}"] = time_ms(call, fence=True)
         log({"timing": "nms", "call": name, "shape": [t, k],
              "max_out": max_out, "mode": mode, "index": index,
-             "path": MC.nms_geometry(t, k)["path"],
-             "kept": int(MC.nms(boxes, scores, iou, max_out, 0.0,
+             "score_thresh": thresh, "path": MC.nms_geometry(t, k)["path"],
+             "kept": int(MC.nms(boxes, scores, iou, max_out, thresh,
                                 mode)[2].sum()), **timings[name]})
     torch.cuda.synchronize()
     record = dict(timings["cross_scale"])
@@ -526,12 +599,24 @@ def crop_bound(images, boxes, oh: int, ow: int) -> tuple:
     [T, K, 4], K a frame of ``images``."""
     import torch
 
-    from scannertools_tpu_torch.models import common as MC
-
-    t, h, w, c = images.shape
+    t, _, _, c = images.shape
     flat = boxes.reshape(-1, 4)
     fi = torch.arange(t, device=flat.device).repeat_interleave(
         boxes.shape[1])
+    n_out = flat.shape[0] * oh * ow
+    nbytes = (n_out * c * 4 + flat.shape[0] * (16 + 8)
+              + touched_pixels(images, flat, fi, oh, ow) * c * 4)
+    return bound_ms(nbytes, n_out * (9 * c + 26))
+
+
+def touched_pixels(images, flat, fi, oh: int, ow: int) -> int:
+    """The pixels of ``images`` [T, H, W, C] that the taps of the crops of
+    ``flat`` [B, 4] boxes from frames ``fi`` read, each counted once."""
+    import torch
+
+    from scannertools_tpu_torch.models import common as MC
+
+    t, h, w, _ = images.shape
     touched = torch.zeros((t, h, w), dtype=torch.bool, device=flat.device)
     for i in range(0, flat.shape[0], 64):
         b = flat[i:i + 64]
@@ -540,10 +625,83 @@ def crop_bound(images, boxes, oh: int, ow: int) -> tuple:
         rows, cols = torch.cat([y0, y1], 1), torch.cat([x0, x1], 1)
         touched[fi[i:i + 64, None, None], rows[:, :, None],
                 cols[:, None, :]] = True
-    n_out = flat.shape[0] * oh * ow
-    nbytes = (n_out * c * 4 + flat.shape[0] * (16 + 8)
-              + int(touched.sum()) * c * 4)
+    return int(touched.sum())
+
+
+def level_crop_bound(maps, boxes, level, fi, oh: int, ow: int) -> tuple:
+    """crop_bound of the level crop: the crops written, the boxes, levels
+    and frame indices read, and each pixel of each level that some crop's
+    taps read, once."""
+    from scannertools_tpu_torch.models import common as MC
+
+    c = maps[0].shape[3]
+    n_out = boxes.shape[0] * oh * ow
+    pixels = 0
+    for lvl, (m, stride) in enumerate(zip(maps, MC.FPN_STRIDES)):
+        sel = level == lvl
+        pixels += touched_pixels(m, boxes[sel] / stride, fi[sel], oh, ow)
+    nbytes = n_out * c * 4 + boxes.shape[0] * (16 + 8 + 8) + pixels * c * 4
     return bound_ms(nbytes, n_out * (9 * c + 26))
+
+
+def check_level_crop() -> dict:
+    """-> {call: timing} of crop_and_resize_levels at Mask R-CNN's calls of
+    an 8-frame chunk: the four FPN levels of 800x1088 canvases at C = 256
+    (P2 [8, 200, 272, 256] .. P5 [8, 25, 34, 256]), 8000 boxes at 7x7 (the
+    RoIAlign of 1000 proposals a frame) and 800 at 14x14 (the masks of 100
+    finals a frame), boxes on every level, past the edges, and zero boxes,
+    each held to its plain version with ``==`` first. ``library_ms``: four
+    ``F.grid_sample`` calls, one a level over its boxes (the grids built
+    and the crops gathered outside the window)."""
+    import torch
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import maskrcnn as PM
+
+    rng = np.random.default_rng(8)
+    canvas = MRCNN_CANVAS
+    maps = [torch.from_numpy(rng.standard_normal(
+        (DET_CHUNK, canvas[0] // s, canvas[1] // s, 256)).astype(
+            np.float32)).cuda() for s in MC.FPN_STRIDES]
+    timings = {}
+    for name, k, size in (("roi_align_7", 1000, 7), ("mask_14", 100, 14)):
+        boxes, fi = level_boxes(rng, DET_CHUNK, k, canvas)
+        boxes = torch.from_numpy(boxes).cuda()
+        fi = torch.from_numpy(fi).cuda()
+        level = PM.fpn_level_for(boxes)
+        per_level = torch.bincount(level, minlength=4).tolist()
+        if min(per_level) == 0:
+            raise AssertionError(f"level crop {name}: boxes a level "
+                                 f"{per_level}")
+        args = (maps, boxes, level, fi, (size, size))
+        got = MC.crop_and_resize_levels(*args)
+        if not torch.equal(got, MC.crop_and_resize_levels_plain(*args)):
+            raise AssertionError(f"crop_and_resize_levels disagrees with its "
+                                 f"plain version at {name}")
+        lib_out, lib_call = grid_sample_level_crops(
+            maps, boxes, level, fi, size, size, MC._sample_positions,
+            MC.FPN_STRIDES)
+        lib_err = float((lib_out - got).abs().max())
+        if not lib_err < CROP_LIBRARY_ATOL:
+            raise AssertionError(f"grid_sample and crop_and_resize_levels "
+                                 f"differ by {lib_err} at {name}")
+        del lib_out, got
+        bound, by = level_crop_bound(maps, boxes, level, fi, size, size)
+        timings[name] = {
+            "ms": time_ms(lambda: MC.crop_and_resize_levels(*args)),
+            "device_ms": time_ms(lambda: MC.crop_and_resize_levels(*args),
+                                 fence=True),
+            "plain_ms": time_ms(lambda: MC.crop_and_resize_levels_plain(
+                *args), reps=5, warm=1),
+            "library_ms": time_ms(lib_call),
+            "library": "4 F.grid_sample, one a level",
+            "library_max_abs_err": lib_err, "max_abs_err": 0.0,
+            "bound_ms": bound, "bound_by": by}
+        log({"timing": "crop_and_resize_levels", "call": name,
+             "shape": [DET_CHUNK * k, size, size, 256],
+             "boxes_a_level": per_level, **timings[name]})
+    torch.cuda.synchronize()
+    return timings
 
 
 def check_crop():
@@ -1745,6 +1903,312 @@ def run_detection_pipeline(db: str):
             for k in ("nms", "crop_and_resize")}
 
 
+# ------------------------------------------------------------ phase 6
+
+
+def maskrcnn_state(arch: str) -> dict:
+    """The port's seeded Mask R-CNN weights with MRCNN_HEAD_SCALES."""
+    from scannertools_tpu_torch.models import maskrcnn as PM
+
+    state = PM.init_params(0, arch)
+    for key, scale in MRCNN_HEAD_SCALES:
+        state[key + ".weight"] = state[key + ".weight"] * scale
+    return state
+
+
+def write_maskrcnn_weights(d: str) -> str:
+    """maskrcnn_state of R-50-FPN, written by the port's save_params in the
+    JAX package's layout (164 MB) -> the npz path."""
+    from scannertools_tpu_torch.models import maskrcnn as PM
+    from scannertools_tpu_torch.models import weights
+
+    path = os.path.join(d, "maskrcnn.npz")
+    weights.save_params(path, PM.to_flax(maskrcnn_state(MRCNN_ARCH),
+                                         MRCNN_ARCH))
+    return path
+
+
+def _mrcnn_launches() -> dict:
+    from scannertools_tpu_torch.models import common as MC
+
+    return {"nms": MC.nms.launches,
+            "crop_and_resize": MC.crop_and_resize.launches,
+            "crop_and_resize_levels": MC.crop_and_resize_levels.launches}
+
+
+def run_maskrcnn_graph(db: str, weights_path, arch: str = MRCNN_ARCH,
+                       frames: int = DET_FRAMES, runs: int = 1,
+                       device: str = "cuda"):
+    """MaskRCNNDetectObjects over the first ``frames`` of the detection
+    phase's video through Client.run, ``runs`` times in a row -> (the
+    loaded rows, [launches of each run], [each run's seconds, frames/s and
+    span totals]). The first run reads and converts the npz; a later one
+    finds the weights cached, so its frames/s is the warm rate."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.models import common as MC
+
+    stream_cls = synthetic_stream_class(
+        DET_FRAMES, FACE_H, FACE_W,
+        lambda: FaceDecoder(DET_FRAMES, FACE_H, FACE_W))
+    sc = st.Client(db_path=db, device=device)
+    frame = sc.io.Input([stream_cls(sc, "mrcnn_video")])
+    if frames < DET_FRAMES:
+        frame = sc.streams.Gather(frame, [list(range(frames))])
+    dets = sc.ops.MaskRCNNDetectObjects(
+        frame=frame, weights_path=weights_path, arch=arch,
+        confidence_threshold=MRCNN_CONFIDENCE)
+    out = st.NamedStream(sc, "mrcnn")
+    perf = st.PerfParams.manual(work_packet_size=DET_CHUNK, ingest="rgb")
+    launches, per_run = [], []
+    for _ in range(runs):
+        before = sc.profiler.totals()
+        MC.nms.launches = MC.crop_and_resize.launches = 0
+        MC.crop_and_resize_levels.launches = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output(dets, [out]), perf,
+               cache_mode=st.CacheMode.Overwrite)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches.append(_mrcnn_launches())
+        per_run.append({
+            "seconds": seconds, "frames_per_s": frames / seconds,
+            "totals_s": {k: v - before.get(k, 0.0)
+                         for k, v in sc.profiler.totals().items()}})
+    return list(out.load()), launches, per_run
+
+
+def plain_maskrcnn_graph(db: str, weights_path, **kw):
+    """run_maskrcnn_graph on the card with nms and the level crop replaced
+    by their plain versions -> the loaded rows."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import maskrcnn as PM
+
+    with mock.patch.object(PM, "nms", MC.nms_plain), \
+            mock.patch.object(PM, "crop_and_resize_levels",
+                              MC.crop_and_resize_levels_plain):
+        rows, launches, _ = run_maskrcnn_graph(db, weights_path, **kw)
+    if any(n for lc in launches for n in lc.values()):
+        raise AssertionError(f"the plain Mask R-CNN graph launched kernels: "
+                             f"{launches}")
+    return rows
+
+
+def _maskrcnn_rows_equal(got, want) -> bool:
+    """The same detections: boxes (with scores and labels) equal, mask
+    canvases equal in shape and bytes."""
+    return len(got) == len(want) and all(
+        len(g) == len(w) and all(
+            a["bbox"] == b["bbox"] and a["mask"].shape == b["mask"].shape
+            and np.array_equal(a["mask"], b["mask"]) for a, b in zip(g, w))
+        for g, w in zip(got, want))
+
+
+def maskrcnn_card_vs_cpu() -> dict:
+    """The R-50-FPN trunk (P2..P6 and the RPN's logits and deltas of each
+    level) on one frame at a MRCNN_CPU_MIN_SIZE letterbox, the box head on
+    seeded 7x7 crops and the mask head on seeded 14x14 crops, with
+    maskrcnn_state's weights on the card and on the CPU: no discrete
+    decision intervenes."""
+    import torch
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import maskrcnn as PM
+
+    frame = torch.from_numpy(FaceDecoder(DET_FRAMES, FACE_H, FACE_W)
+                             .read_frames([0])).to(torch.float32)
+    images, _ = PM.preprocess(frame, MRCNN_CPU_MIN_SIZE, PM.MAX_SIZE)
+    rng = np.random.default_rng(10)
+    roi7 = torch.from_numpy(rng.normal(0, 100, (16, 7, 7, 256)).astype(
+        np.float32))
+    roi14 = torch.from_numpy(rng.normal(0, 100, (16, 14, 14, 256)).astype(
+        np.float32))
+
+    def parts(net, x, r7, r14):
+        fpn = net.backbone(x.permute(0, 3, 1, 2))
+        rpn = [t for f in fpn for t in net.rpn(f)]
+        return [*fpn, *rpn, *net.box(r7), net.mask(r14)]
+
+    net = PM.MaskRCNN(MRCNN_ARCH)
+    net.load_state_dict(maskrcnn_state(MRCNN_ARCH))
+    with torch.no_grad(), MC.full_f32():
+        cpu = parts(net, images, roi7, roi14)
+        card = parts(net.cuda(), images.cuda(), roi7.cuda(), roi14.cuda())
+    worst = {"max_abs_diff": 0.0, "max_abs": 0.0, "rel": 0.0}
+    for i, (c, g) in enumerate(zip(cpu, card)):
+        err = float((g.cpu() - c).abs().max())
+        scale = float(c.abs().max())
+        if not err <= CARD_CPU_RTOL * scale:
+            raise AssertionError(f"Mask R-CNN part {i}: card and CPU differ "
+                                 f"by {err} (largest {scale})")
+        if err / scale >= worst["rel"]:
+            worst = {"max_abs_diff": err, "max_abs": scale,
+                     "rel": err / scale, "part": i}
+    return {"canvas": list(images.shape[1:3]), "parts": len(cpu), **worst}
+
+
+def maskrcnn_stage_ms(weights_path: str) -> dict:
+    """One DET_CHUNK-frame chunk through MaskRCNNForward on the card, each
+    stage bracketed by CUDA events on the compute stream -> {stage: ms
+    summed over its calls}, the host decode's ms, and the kernels' device
+    time by torch.profiler in a further call."""
+    from unittest import mock
+
+    import torch
+
+    from scannertools_tpu_torch.models import maskrcnn as PM
+    from scannertools_tpu_torch.ops import faces as PFO
+    from scannertools_tpu_torch.ops import objects as PO
+
+    frames = torch.from_numpy(FaceDecoder(DET_FRAMES, FACE_H, FACE_W)
+                              .read_frames(range(DET_CHUNK))).cuda()
+    state = {k: v.cuda() for k, v in PFO._get_params(
+        "maskrcnn", weights_path, MRCNN_ARCH).items()}
+    arrays = {}
+
+    def forward():
+        arrays["out"] = PO.maskrcnn_forward(None, state, frames)
+
+    forward()  # warm: anchors, index maps, cuDNN plans
+    marks = []
+    calls = {"topk": 0, "nms": 0}
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            name = stage(args) if callable(stage) else stage
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((name, start, end))
+            return out
+        return run
+
+    def topk_stage(args):  # five levels, then across them
+        calls["topk"] += 1
+        return "topk_levels" if calls["topk"] % 6 else "topk_cross"
+
+    def nms_stage(args):
+        calls["nms"] += 1
+        return "nms_proposals" if calls["nms"] % 2 else "nms_final"
+
+    def crop_stage(args):
+        return {7: "roi_align_7", 14: "mask_crop_14"}[args[4][0]]
+
+    patches = [(PM, "preprocess", "preprocess"),
+               (PM.BackboneFPN, "body", "backbone"),
+               (PM.BackboneFPN, "fpn", "fpn"),
+               (PM.RPNHead, "forward", "rpn_head"),
+               (PM, "propose", "proposals"),
+               (PM, "topk_stable", topk_stage), (PM, "nms", nms_stage),
+               (PM, "crop_and_resize_levels", crop_stage),
+               (PM.BoxHead, "forward", "box_head"),
+               (PM, "select_detections", "select_detections"),
+               (PM.MaskHead, "forward", "mask_head"),
+               (PO, "maskrcnn_forward", "forward")]
+    with contextlib.ExitStack() as stack:
+        for obj, name, stage in patches:
+            stack.enter_context(mock.patch.object(
+                obj, name, timed(stage, getattr(obj, name))))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward()
+        end.record()
+        torch.cuda.synchronize()
+    out = {"chunk": start.elapsed_time(end)}
+    for stage, s, e in marks:
+        out[stage] = out.get(stage, 0.0) + s.elapsed_time(e)
+    out["topk_share"] = (out["topk_levels"] + out["topk_cross"]) \
+        / out["chunk"]
+    host = [a.cpu().numpy() for a in arrays["out"]]
+    t0 = time.perf_counter()
+    PO.maskrcnn_decode(None, *host, confidence_threshold=MRCNN_CONFIDENCE)
+    out["decode_host"] = (time.perf_counter() - t0) * 1e3
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        forward()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out["kernels_ms"] = busy if busy > 0 else "not measured"
+    out["frames"] = DET_CHUNK
+    return out
+
+
+def run_maskrcnn_pipeline(db: str):
+    """Phase 6 -> {kernel: launches of the R-50-FPN graph's first run};
+    every check raises."""
+    weights = write_maskrcnn_weights(db)
+    chunks = -(-DET_FRAMES // DET_CHUNK)
+    # twice: the first run's frames/s holds the npz read, the second's not
+    rows, launches, per_run = run_maskrcnn_graph(
+        os.path.join(db, "mrcnn"), weights, runs=2)
+    plain = plain_maskrcnn_graph(os.path.join(db, "mrcnn_plain"), weights)
+    want = {k: n * chunks for k, n in MRCNN_LAUNCHES_PER_CHUNK.items()}
+    counts = [len(f) for f in rows]
+    result = {"run": "maskrcnn_pipeline", "arch": MRCNN_ARCH,
+              "frames": DET_FRAMES, "height": FACE_H, "width": FACE_W,
+              "canvas": list(MRCNN_CANVAS), "launches": launches,
+              "runs": per_run, "masks_per_frame": counts,
+              "confidence_threshold": MRCNN_CONFIDENCE,
+              "rows_equal_plain": _maskrcnn_rows_equal(rows, plain)}
+    log(result)
+    if any(lc != want for lc in launches):
+        raise AssertionError(f"Mask R-CNN: launches {launches}, want {want} "
+                             f"each run")
+    if not result["rows_equal_plain"]:
+        raise AssertionError("Mask R-CNN: rows differ from the plain "
+                             "kernels' run")
+    with_dets = sum(1 for n in counts if n)
+    if len(rows) != DET_FRAMES or with_dets <= DET_FRAMES // 2:
+        raise AssertionError(f"Mask R-CNN detections in {with_dets} of "
+                             f"{len(rows)} frames")
+    for f in rows:
+        for d in f:
+            b = d["bbox"]
+            if d["mask"].shape != (FACE_H // 4, FACE_W // 4) or not (
+                    1 <= b.label <= 80 and b.score >= MRCNN_CONFIDENCE
+                    and 0.0 <= b.x1 <= b.x2 <= 1.0
+                    and 0.0 <= b.y1 <= b.y2 <= 1.0
+                    and np.isfinite(d["mask"]).all()):
+                raise AssertionError(f"Mask R-CNN detection out of its "
+                                     f"contract: {b}, mask "
+                                     f"{d['mask'].shape}")
+    # the ResNeXt trunk (grouped convolutions): one chunk on the port's
+    # own seeded weights (no weights_path: its npz would be 400 MB), the
+    # same checks
+    x_rows, x_launches, x_runs = run_maskrcnn_graph(
+        os.path.join(db, "mrcnn_x"), None, arch=MRCNN_X_ARCH,
+        frames=DET_CHUNK)
+    x_plain = plain_maskrcnn_graph(os.path.join(db, "mrcnn_x_plain"), None,
+                                   arch=MRCNN_X_ARCH, frames=DET_CHUNK)
+    x_result = {"run": "maskrcnn_pipeline", "arch": MRCNN_X_ARCH,
+                "frames": DET_CHUNK, "launches": x_launches, "runs": x_runs,
+                "masks_per_frame": [len(f) for f in x_rows],
+                "rows_equal_plain": _maskrcnn_rows_equal(x_rows, x_plain)}
+    log(x_result)
+    if x_launches != [MRCNN_LAUNCHES_PER_CHUNK]:
+        raise AssertionError(f"{MRCNN_X_ARCH}: launches {x_launches}")
+    if not x_result["rows_equal_plain"] or len(x_rows) != DET_CHUNK:
+        raise AssertionError(f"{MRCNN_X_ARCH}: rows differ from the plain "
+                             "kernels' run")
+    log({"maskrcnn_card_vs_cpu": maskrcnn_card_vs_cpu()})
+    log({"maskrcnn_stages_ms": maskrcnn_stage_ms(weights),
+         "shape": [DET_CHUNK, FACE_H, FACE_W],
+         "canvas": list(MRCNN_CANVAS)})
+    return launches[0]
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1765,6 +2229,7 @@ def main() -> int:
     records["flow_update"] = check_flow_update()
     records["nms"] = check_nms()
     records["crop_and_resize"] = check_crop()
+    check_level_crop()
 
     db = tempfile.mkdtemp(prefix="chip_smoke_db_")
     try:
@@ -1772,11 +2237,13 @@ def main() -> int:
         flow_launches = run_flow_pipeline(db)
         face_launches = run_face_pipeline(db)
         det_launches = run_detection_pipeline(db)
+        mrcnn_launches = run_maskrcnn_pipeline(db)
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
     log({"launches_by_path": {"faces": face_launches,
-                              "detection": det_launches}})
+                              "detection": det_launches,
+                              "maskrcnn": mrcnn_launches}})
     kernels = [
         {"name": "hist_rgb", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/histogram.cu",
@@ -1797,14 +2264,18 @@ def main() -> int:
         {"name": "nms", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/nms.cu",
          "replaces": "scannertools_tpu/models/common.py:33",
-         "launches": face_launches["nms"] + det_launches["nms"],
+         "launches": (face_launches["nms"] + det_launches["nms"]
+                      + mrcnn_launches["nms"]),
          **records["nms"],
          "library_ms": None},
         {"name": "crop_and_resize", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/crop_resize.cu",
          "replaces": "scannertools_tpu/models/common.py:105",
+         # the level crop (Mask R-CNN's) is the same kernel source
          "launches": (face_launches["crop_and_resize"]
-                      + det_launches["crop_and_resize"]),
+                      + det_launches["crop_and_resize"]
+                      + mrcnn_launches["crop_and_resize"]
+                      + mrcnn_launches["crop_and_resize_levels"]),
          **records["crop_and_resize"]},
     ]
     log({"kernels": kernels})

@@ -58,6 +58,18 @@
 // rounded on its own (__fmul_rn, __fadd_rn: no FMA), so the kernel equals
 // crop_and_resize_plain bit for bit. XLA's einsum may contract a product
 // and the sum into an FMA, so the JAX package is held within a tolerance.
+//
+// A box may also carry its own map (st_crop_resize_levels): Mask R-CNN's
+// RoIAlign crops each RoI from the FPN level P2..P5 that the canonical
+// heuristic assigns it. The JAX package (roi_align_multilevel,
+// scannertools_tpu/models/maskrcnn.py:223-238) crops every RoI from all four
+// levels and keeps one through a one-hot sum, four times the taps; here the
+// box's thread loads its level with its frame index (and traps on a level
+// outside [0, levels) as on a bad frame), takes that level's map, height
+// and width, and scales the box by the level's 1 / stride, a power of two,
+// so the product is exact (the JAX package's boxes / stride). The rest of
+// the block is the one-map crop's. Its values equal the one-hot sum (0 * x
+// + y == y for finite x), though the sign of a zero may differ.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +80,18 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBandRows = 16;
 constexpr int kMaxOw = 2048;
+constexpr int kMaxLevels = 4;
+
+// The maps of a launch: one for st_crop_resize, one per FPN level for
+// st_crop_resize_levels, each [t, h, w, c] with the reciprocal of its
+// stride (1 for the one-map crop).
+struct Maps {
+  const float* img[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  float inv_stride[kMaxLevels];
+  int levels;
+};
 
 struct Taps {
   int i0, i1;    // the two source offsets (rows or columns times their
@@ -135,11 +159,14 @@ struct Band {
   const Taps* yt;
 };
 
+// kLevels: each box names its map in `level` (else map 0, unscaled).
+template <bool kLevels>
 __device__ __forceinline__ Band begin_band(
-    const float* images, int t, int h, int w, int c, const float* boxes,
-    const int64_t* frame_idx, int oh, int ow, int band_rows, int bands,
-    float inv_oh, float inv_ow, Taps* smem) {
-  __shared__ int64_t frame_off;
+    const Maps& maps, int t, int c, const float* boxes,
+    const int64_t* frame_idx, const int64_t* level, int oh, int ow,
+    int band_rows, int bands, float inv_oh, float inv_ow, Taps* smem) {
+  __shared__ const float* simg;
+  __shared__ int sh, sw;
   __shared__ float4 sbox;
   Band bd;
   bd.box = blockIdx.x / bands;
@@ -148,11 +175,34 @@ __device__ __forceinline__ Band begin_band(
   if (threadIdx.x == 0) {
     const int64_t f = frame_idx[bd.box];
     if (f < 0 || f >= t) __trap();
-    frame_off = f * h * w * c;
-    sbox = reinterpret_cast<const float4*>(boxes)[bd.box];
+    float4 b = reinterpret_cast<const float4*>(boxes)[bd.box];
+    const float* img = maps.img[0];
+    int h = maps.h[0], w = maps.w[0];
+    if constexpr (kLevels) {
+      const int64_t l = level[bd.box];
+      if (l < 0 || l >= maps.levels) __trap();
+      float s = maps.inv_stride[0];
+#pragma unroll
+      for (int i = 1; i < kMaxLevels; ++i)  // no dynamic index: no stack
+        if (l == i) {
+          img = maps.img[i];
+          h = maps.h[i];
+          w = maps.w[i];
+          s = maps.inv_stride[i];
+        }
+      b = make_float4(__fmul_rn(b.x, s), __fmul_rn(b.y, s),
+                      __fmul_rn(b.z, s), __fmul_rn(b.w, s));
+    }
+    simg = img + f * h * w * c;
+    sh = h;
+    sw = w;
+    sbox = b;
   }
   __syncthreads();
   const float4 b = sbox;
+  // the one-map crop reads its sides from the launch's parameters
+  const int h = kLevels ? sh : maps.h[0];
+  const int w = kLevels ? sw : maps.w[0];
   Taps* xt = smem;
   Taps* yt = smem + ow;
   for (int x = threadIdx.x; x < ow; x += kThreads)
@@ -160,23 +210,24 @@ __device__ __forceinline__ Band begin_band(
   for (int r = threadIdx.x; r < bd.rows; r += kThreads)
     yt[r] = taps(b.y, b.w, bd.y0 + r, inv_oh, h, w * c);
   __syncthreads();
-  bd.img = images + frame_off;
+  bd.img = simg;
   bd.xt = xt;
   bd.yt = yt;
   return bd;
 }
 
 // kC: the channel count when it is 1-4, else 0 (read from c).
-template <int kC>
+template <int kC, bool kLevels>
 __global__ void __launch_bounds__(kThreads) crop_rows(
-    const float* __restrict__ images, int t, int h, int w, int c,
-    const float* __restrict__ boxes, const int64_t* __restrict__ frame_idx,
+    const Maps maps, int t, int c, const float* __restrict__ boxes,
+    const int64_t* __restrict__ frame_idx, const int64_t* __restrict__ level,
     int oh, int ow, int band_rows, int bands, float inv_oh, float inv_ow,
     float* __restrict__ out) {
   extern __shared__ Taps smem_taps[];
   const int cc = kC ? kC : c;
-  const Band bd = begin_band(images, t, h, w, cc, boxes, frame_idx, oh, ow,
-                             band_rows, bands, inv_oh, inv_ow, smem_taps);
+  const Band bd = begin_band<kLevels>(maps, t, cc, boxes, frame_idx, level,
+                                      oh, ow, band_rows, bands, inv_oh,
+                                      inv_ow, smem_taps);
   const int lane = threadIdx.x & 31;
   const int row_len = ow * cc;
   for (int r = threadIdx.x >> 5; r < bd.rows; r += kWarps) {
@@ -214,14 +265,16 @@ __global__ void __launch_bounds__(kThreads) crop_rows(
   }
 }
 
+template <bool kLevels>
 __global__ void __launch_bounds__(kThreads) crop_pixels(
-    const float* __restrict__ images, int t, int h, int w, int c,
-    const float* __restrict__ boxes, const int64_t* __restrict__ frame_idx,
+    const Maps maps, int t, int c, const float* __restrict__ boxes,
+    const int64_t* __restrict__ frame_idx, const int64_t* __restrict__ level,
     int oh, int ow, int band_rows, int bands, float inv_oh, float inv_ow,
     float* __restrict__ out) {
   extern __shared__ Taps smem_taps[];
-  const Band bd = begin_band(images, t, h, w, c, boxes, frame_idx, oh, ow,
-                             band_rows, bands, inv_oh, inv_ow, smem_taps);
+  const Band bd = begin_band<kLevels>(maps, t, c, boxes, frame_idx, level,
+                                      oh, ow, band_rows, bands, inv_oh,
+                                      inv_ow, smem_taps);
   const int c4 = c >> 2;
   int group = 1;  // lanes a pixel: min(32, c4) rounded up to a power of 2
   while (group < c4 && group < 32) group <<= 1;
@@ -248,6 +301,42 @@ __global__ void __launch_bounds__(kThreads) crop_pixels(
   }
 }
 
+template <bool kLevels>
+int launch(const Maps& maps, int t, int c, const float* boxes,
+           const int64_t* frame_idx, const int64_t* level, int b, int oh,
+           int ow, float inv_oh, float inv_ow, int band_rows, int bands,
+           int pixels, float* out, void* stream) {
+  if (b <= 0) return 0;
+  if (oh < 1 || ow < 1 || ow > kMaxOw || c < 1 || band_rows < 1 ||
+      band_rows > kMaxBandRows || bands != (oh + band_rows - 1) / band_rows ||
+      static_cast<int64_t>(b) * bands > 0x7fffffff ||
+      (pixels && (c % 4 || c <= 4)) || maps.levels < 1 ||
+      maps.levels > kMaxLevels)
+    return cudaErrorInvalidValue;
+  for (int l = 0; l < maps.levels; ++l)
+    if (maps.h[l] < 1 || maps.w[l] < 1) return cudaErrorInvalidValue;
+  const unsigned blocks = static_cast<unsigned>(b * bands);
+  const size_t smem = sizeof(Taps) * (ow + band_rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ST_CROP_ARGS \
+  maps, t, c, boxes, frame_idx, level, oh, ow, band_rows, bands, inv_oh, \
+      inv_ow, out
+  if (pixels)
+    crop_pixels<kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else if (c == 1)
+    crop_rows<1, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else if (c == 2)
+    crop_rows<2, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else if (c == 3)
+    crop_rows<3, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else if (c == 4)
+    crop_rows<4, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+  else
+    crop_rows<0, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+#undef ST_CROP_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace stcrop
 
 // images [t, h, w, c], boxes [b, 4] (16-byte aligned), frame_idx [b] int64,
@@ -263,31 +352,42 @@ extern "C" int st_crop_resize(const float* images, int t, int h, int w,
                               int ow, float inv_oh, float inv_ow,
                               int band_rows, int bands, int pixels,
                               float* out, void* stream) {
-  using namespace stcrop;
-  if (b <= 0) return 0;
-  if (oh < 1 || ow < 1 || ow > kMaxOw || c < 1 || band_rows < 1 ||
-      band_rows > kMaxBandRows || bands != (oh + band_rows - 1) / band_rows ||
-      static_cast<int64_t>(b) * bands > 0x7fffffff ||
-      (pixels && (c % 4 || c <= 4)))
-    return cudaErrorInvalidValue;
-  const unsigned blocks = static_cast<unsigned>(b * bands);
-  const size_t smem = sizeof(Taps) * (ow + band_rows);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ST_CROP_ARGS \
-  images, t, h, w, c, boxes, frame_idx, oh, ow, band_rows, bands, inv_oh, \
-      inv_ow, out
-  if (pixels)
-    crop_pixels<<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
-  else if (c == 1)
-    crop_rows<1><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
-  else if (c == 2)
-    crop_rows<2><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
-  else if (c == 3)
-    crop_rows<3><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
-  else if (c == 4)
-    crop_rows<4><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
-  else
-    crop_rows<0><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
-#undef ST_CROP_ARGS
-  return static_cast<int>(cudaGetLastError());
+  stcrop::Maps maps = {};
+  maps.img[0] = images;
+  maps.h[0] = h;
+  maps.w[0] = w;
+  maps.inv_stride[0] = 1.f;
+  maps.levels = 1;
+  return stcrop::launch<false>(maps, t, c, boxes, frame_idx, nullptr, b, oh,
+                               ow, inv_oh, inv_ow, band_rows, bands, pixels,
+                               out, stream);
+}
+
+// The crop with a map a box: `levels` maps (host arrays: images[l] on the
+// device, [t, hw[2l], hw[2l + 1], c], each 16-byte aligned where `pixels`
+// is set; inv_stride[l] the reciprocal of its stride, a power of two),
+// level [b] int64, the rest as st_crop_resize. A box's coordinates are in
+// canvas pixels; the kernel scales them by its level's inv_stride.
+extern "C" int st_crop_resize_levels(const float* const* images,
+                                     const int* hw, const float* inv_stride,
+                                     int levels, int t, int c,
+                                     const float* boxes,
+                                     const int64_t* frame_idx,
+                                     const int64_t* level, int b, int oh,
+                                     int ow, float inv_oh, float inv_ow,
+                                     int band_rows, int bands, int pixels,
+                                     float* out, void* stream) {
+  using stcrop::kMaxLevels;
+  if (levels < 1 || levels > kMaxLevels) return cudaErrorInvalidValue;
+  stcrop::Maps maps = {};
+  for (int l = 0; l < levels; ++l) {
+    maps.img[l] = images[l];
+    maps.h[l] = hw[2 * l];
+    maps.w[l] = hw[2 * l + 1];
+    maps.inv_stride[l] = inv_stride[l];
+  }
+  maps.levels = levels;
+  return stcrop::launch<true>(maps, t, c, boxes, frame_idx, level, b, oh, ow,
+                              inv_oh, inv_ow, band_rows, bands, pixels, out,
+                              stream);
 }

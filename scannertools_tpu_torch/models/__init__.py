@@ -5,5 +5,5 @@ JAX package's architectures and the torch names of models/porting_maps.py
 Pretrained weights are not bundled (no-egress build environment); load them
 as an npz in the JAX package's layout via models/weights.py."""
 
-from . import (common, facenet, faster_rcnn, gender, mtcnn,  # noqa: F401
-               porting_maps, ssd, weights)
+from . import (common, facenet, faster_rcnn, gender, maskrcnn,  # noqa: F401
+               mtcnn, porting_maps, ssd, weights)

@@ -24,7 +24,9 @@ tensors take their plain torch versions beside them:
   * ``crop_and_resize`` (kernels/csrc/crop_resize.cu): bilinear crops as a
     two-tap gather per axis, y first, with a per-box frame index; one block
     per box and band of output rows. ``crop_and_resize_plain`` gathers the
-    same taps in torch.
+    same taps in torch. ``crop_and_resize_levels`` is the same kernel with
+    a map a box (Mask R-CNN's RoIAlign over the FPN levels), beside its
+    plain version ``crop_and_resize_levels_plain``.
 
 The launch geometry of both kernels (``nms_geometry``, ``crop_geometry``)
 is computed here, so the CPU tests can check it.
@@ -51,6 +53,9 @@ from ..utils.numerics import div, recip
 NMS_MAX_K = 16384
 # the widest crop: the block keeps a crop's column taps in shared memory
 CROP_MAX_OW = 2048
+# the FPN levels P2..P5 that the level crop reads, by their strides (powers
+# of two: a box scales to its level exactly); crop_resize.cu's kMaxLevels
+FPN_STRIDES = (4, 8, 16, 32)
 _INT32_MAX = 2**31 - 1
 
 
@@ -79,10 +84,11 @@ def batch_norm(bn: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _skeleton(cls) -> torch.nn.Module:
-    """One weightless instance of a net (on the meta device) per class."""
+def _skeleton(cls, *init) -> torch.nn.Module:
+    """One weightless instance of a net (on the meta device) per class and
+    constructor arguments."""
     with torch.device("meta"):
-        return cls().eval()
+        return cls(*init).eval()
 
 
 def apply_net(cls, state, *args):
@@ -413,6 +419,9 @@ def _crop_lib() -> ctypes.CDLL:
     lib.st_crop_resize.restype = i
     lib.st_crop_resize.argtypes = [p, i, i, i, i, p, p, i, i, i, f, f, i, i,
                                    i, p, p]
+    lib.st_crop_resize_levels.restype = i
+    lib.st_crop_resize_levels.argtypes = [p, p, p, i, i, i, p, p, p, i, i, i,
+                                          f, f, i, i, i, p, p]
     return lib
 
 
@@ -472,6 +481,107 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_hw,
 
 
 crop_and_resize.launches = 0
+
+
+def _check_levels(maps, boxes, level, frame_idx, out_hw, name: str) -> None:
+    if not 1 <= len(maps) <= len(FPN_STRIDES):
+        raise ValueError(f"{name}: 1 to {len(FPN_STRIDES)} maps, got "
+                         f"{len(maps)}")
+    for m in maps:
+        _check_crop(m, boxes, frame_idx, out_hw, name)
+        if (m.shape[0], m.shape[3]) != (maps[0].shape[0], maps[0].shape[3]):
+            raise ValueError(f"{name}: maps of other frame or channel counts: "
+                             f"{[tuple(x.shape) for x in maps]}")
+    if tuple(level.shape) != (boxes.shape[0],) or level.dtype != torch.int64 \
+            or not level.is_contiguous() or level.device != boxes.device:
+        raise ValueError(f"{name}: level must be a contiguous [B] int64 "
+                         f"tensor beside the boxes, got {tuple(level.shape)} "
+                         f"{level.dtype} on {level.device}")
+
+
+def crop_and_resize_levels_plain(maps, boxes: torch.Tensor,
+                                 level: torch.Tensor, frame_idx: torch.Tensor,
+                                 out_hw) -> torch.Tensor:
+    """The level crop in plain torch: each level's boxes, scaled to it, by
+    ``crop_and_resize_plain``; see ``crop_and_resize_levels``."""
+    maps = list(maps)
+    _check_levels(maps, boxes, level, frame_idx, out_hw,
+                  "crop_and_resize_levels_plain")
+    if bool(((level < 0) | (level >= len(maps))).any()):
+        raise IndexError(f"crop_and_resize_levels_plain: a level outside "
+                         f"[0, {len(maps)})")
+    out = boxes.new_empty((boxes.shape[0], *out_hw, maps[0].shape[3]))
+    for lvl, (m, stride) in enumerate(zip(maps, FPN_STRIDES)):
+        sel = torch.nonzero(level == lvl).squeeze(1)
+        if sel.numel():
+            out[sel] = crop_and_resize_plain(m, boxes[sel] / stride, out_hw,
+                                             frame_idx[sel])
+    return out
+
+
+def crop_and_resize_levels(maps, boxes: torch.Tensor, level: torch.Tensor,
+                           frame_idx: torch.Tensor, out_hw) -> torch.Tensor:
+    """maps: 1-4 [T, H_l, W_l, C] float32 (the FPN levels P2..P5, strides
+    FPN_STRIDES); boxes: [B, 4] (x1, y1, x2, y2) float32 in canvas pixels;
+    level: [B] int64 in [0, len(maps)), the map of each box; frame_idx: [B]
+    int64 in [0, T) -> [B, oh, ow, C]: each box divided by its level's
+    stride (exact: a power of two) and cropped from that level as
+    ``crop_and_resize`` crops. An index outside its range raises: IndexError
+    on the CPU; on the card the kernel traps, as for a bad frame index.
+
+    It replaces the JAX package's ``roi_align_multilevel``, which crops
+    every box from all four levels and sums them weighted by a one-hot of
+    the level: the same values (0 * x + y == y), but a zero's sign may
+    differ, so compare with ``==``. For CUDA tensors one launch of the crop
+    kernel serves every box of every level; CPU tensors take
+    ``crop_and_resize_levels_plain``."""
+    maps = list(maps)
+    _check_levels(maps, boxes, level, frame_idx, out_hw,
+                  "crop_and_resize_levels")
+    if boxes.device.type == "cpu":
+        return crop_and_resize_levels_plain(maps, boxes, level, frame_idx,
+                                            out_hw)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"crop_and_resize_levels: unsupported device "
+                         f"{boxes.device}")
+    if boxes.data_ptr() % 16:
+        raise ValueError("crop_and_resize_levels: boxes must be 16-byte "
+                         "aligned")
+    oh, ow = (int(v) for v in out_hw)
+    t, _, _, c = maps[0].shape
+    b = boxes.shape[0]
+    geo = crop_geometry(b, oh, ow, c,
+                        all(m.data_ptr() % 16 == 0 for m in maps))
+    if ow > CROP_MAX_OW or max(max(m.shape[1] * m.shape[2] * c for m in maps),
+                               oh * ow * c, geo["blocks"]) > _INT32_MAX:
+        raise ValueError(f"crop_and_resize_levels: maps "
+                         f"{[tuple(m.shape) for m in maps]} or {b} crops of "
+                         f"{oh}x{ow} exceed the kernel's 32-bit indices or "
+                         f"its {CROP_MAX_OW} output columns")
+    out = torch.empty((b, oh, ow, c), dtype=torch.float32,
+                      device=boxes.device)
+    if out.numel() == 0:
+        return out  # nothing to compute: no launch
+    n = len(maps)
+    images = (ctypes.c_void_p * n)(*(m.data_ptr() for m in maps))
+    hw = (ctypes.c_int * (2 * n))(*(int(s) for m in maps
+                                    for s in m.shape[1:3]))
+    inv_stride = (ctypes.c_float * n)(*(recip(s) for s in FPN_STRIDES[:n]))
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _crop_lib().st_crop_resize_levels(
+            images, hw, inv_stride, n, t, c, boxes.data_ptr(),
+            frame_idx.data_ptr(), level.data_ptr(), b, oh, ow, recip(oh),
+            recip(ow), geo["band_rows"], geo["bands"], int(geo["pixels"]),
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"crop_and_resize_levels: CUDA launch failed with "
+                           f"error {rc}")
+    crop_and_resize_levels.launches += 1
+    return out
+
+
+crop_and_resize_levels.launches = 0
 
 
 def topk_stable(x: torch.Tensor, k: int):

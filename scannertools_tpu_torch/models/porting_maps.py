@@ -362,21 +362,15 @@ def port_gender(variables: Dict, tf_vars: Mapping) -> Dict:
 
 # ------------------------------------------- Mask R-CNN (maskrcnn-benchmark)
 
-# residual blocks per stage of each arch (the JAX package's
-# models/maskrcnn.py ARCHS; that model is not ported yet)
-_MASKRCNN_BLOCKS = {
-    "R-50-FPN": (3, 4, 6, 3),
-    "R-101-FPN": (3, 4, 23, 3),
-    "X-101-32x8d-FPN": (3, 4, 23, 3),
-}
-
 def maskrcnn_mapping(arch: str = "X-101-32x8d-FPN") -> Dict[str, Tuple[str, str]]:
     """flax path (over the MaskRCNNModel ``variables`` dict:
     trunk/box/mask roots) -> maskrcnn-benchmark state_dict key
     (maskrcnn_detection.py:340-360's checkpoint; strip any leading
     ``module.``). FrozenBatchNorm2d's four tensors land on our frozen
     nn.BatchNorm params/batch_stats."""
-    blocks = _MASKRCNN_BLOCKS[arch]
+    from .maskrcnn import ARCHS
+
+    blocks = ARCHS[arch][0]
     out: Dict[str, Tuple[str, str]] = {}
 
     def conv(flax_path, torch_key, kind="conv", bias=False):

@@ -21,7 +21,9 @@ models/weights.py, numpy only, plus the torch direction):
     weight/bias/running_mean/running_var) and back. Kind
     ``linear_conv:C,H,W`` is a dense layer after a conv: flax flattens its
     input HWC, torch CHW, so its kernel rows are permuted
-    (porting_maps.linear_after_conv and its inverse).
+    (porting_maps.linear_after_conv and its inverse). Kind
+    ``conv_transpose`` mirrors the kernel's spatial axes both ways
+    (``from_torch_conv_transpose``).
 """
 
 from __future__ import annotations
@@ -90,8 +92,13 @@ def from_torch_bn(weight, bias, running_mean, running_var):
 
 
 def from_torch_conv_transpose(w: np.ndarray) -> np.ndarray:
-    """torch ConvTranspose2d weight [I, O, kH, kW] -> flax [kH, kW, I, O]."""
-    return np.transpose(np.asarray(w), (2, 3, 0, 1))
+    """torch ConvTranspose2d weight [I, O, kH, kW] -> flax [kH, kW, I, O],
+    flipped in both spatial axes: flax's ``nn.ConvTranspose`` runs with
+    ``transpose_kernel=False`` (a correlation of the dilated input, the
+    kernel not flipped), so it computes torch's transposed convolution only
+    with the kernel mirrored. (The JAX package's converter does not flip:
+    a real checkpoint's upsampling comes out mirrored there.)"""
+    return np.transpose(np.asarray(w), (2, 3, 0, 1))[::-1, ::-1]
 
 
 def from_tf_conv(w: np.ndarray) -> np.ndarray:
@@ -158,6 +165,8 @@ def _to_torch(kind: str, a: np.ndarray) -> np.ndarray:
     _KIND_FNS and of porting_maps.linear_after_conv)."""
     if kind in ("conv", "tf_conv"):  # HWIO -> OIHW
         return np.transpose(a, (3, 2, 0, 1))
+    if kind == "conv_transpose":  # HWIO, mirrored -> IOHW
+        return np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
     if kind == "linear":
         return np.transpose(a, (1, 0))
     if kind.startswith("linear_conv:"):  # [H*W*C, O] -> [O, C*H*W]
@@ -173,6 +182,8 @@ def _to_torch(kind: str, a: np.ndarray) -> np.ndarray:
 def _to_flax(kind: str, a: np.ndarray) -> np.ndarray:
     if kind in ("conv", "tf_conv"):
         return from_torch_conv(a)
+    if kind == "conv_transpose":
+        return from_torch_conv_transpose(a)
     if kind.startswith("linear_conv:"):
         c, h, w = _chw(kind)
         o = a.shape[0]

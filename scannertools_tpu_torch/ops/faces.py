@@ -38,6 +38,7 @@ from ..graph import NodeOutput, OpNode
 from ..models import facenet as facenet_lib
 from ..models import faster_rcnn as faster_rcnn_lib
 from ..models import gender as gender_lib
+from ..models import maskrcnn as maskrcnn_lib
 from ..models import mtcnn as mtcnn_lib
 from ..models import ssd as ssd_lib
 from ..models import weights as weights_lib
@@ -53,20 +54,25 @@ MAX_FACES = mtcnn_lib.MAX_FACES
 # op that loads weights (the detection ops of objects.py and nn_generic.py
 # too)
 _MODELS = {"mtcnn": mtcnn_lib, "facenet": facenet_lib, "gender": gender_lib,
-           "ssd": ssd_lib, "faster_rcnn": faster_rcnn_lib}
+           "ssd": ssd_lib, "faster_rcnn": faster_rcnn_lib,
+           "maskrcnn": maskrcnn_lib}
 
 
-def _get_params(model: str, weights_path: Optional[str]):
+def _get_params(model: str, weights_path: Optional[str],
+                arch: Optional[str] = None):
     """The model's weights as torch tensors on the CPU, once per (model,
-    weights_path)."""
-    key = (model, weights_path)
+    weights_path), and per arch for a model built in several (Mask R-CNN:
+    the arch fixes the tree)."""
+    key = (model, weights_path) if arch is None else (model, weights_path,
+                                                      arch)
     if key not in _MODEL_CACHE:
         lib = _MODELS[model]
+        extra = () if arch is None else (arch,)
         if weights_path:
             _MODEL_CACHE[key] = lib.from_flax(
-                weights_lib.load_params(weights_path))
+                weights_lib.load_params(weights_path), *extra)
         else:
-            _MODEL_CACHE[key] = lib.init_params(0)
+            _MODEL_CACHE[key] = lib.init_params(0, *extra)
     return _MODEL_CACHE[key]
 
 

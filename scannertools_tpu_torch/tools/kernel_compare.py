@@ -21,8 +21,11 @@ same for every checkout. ``--kernels`` picks among:
     scales batched [80, 128], R-Net [16, 96], O-Net [16, 64] ("min",
     max_out 32); and at the detection models' calls: [1, 1000] (max_out
     1000, a Mask R-CNN FPN level), [2, 2048] and [8, 2048] (max_out 300,
-    Faster R-CNN's proposals of two frames and of an 8-frame chunk) and
-    [8, 512] (max_out 100, SSD's chunk), IoU 0.7; with the rows each keeps;
+    Faster R-CNN's proposals of two frames and of an 8-frame chunk),
+    [8, 512] (max_out 100, SSD's chunk), and Mask R-CNN's calls of an
+    8-frame chunk: the proposals [40, 1000] (max_out 1000) and the finals
+    [8, 1000] (max_out 100, with the kept index), IoU 0.7; with the rows
+    each keeps;
   * ``crop``: ``crop_and_resize`` from 16 frames of 640x480x3 at FaceNet's
     512 crops of 160x160, gender's 512 of 227x227, R-Net's 1536 of 24x24,
     O-Net's 1024 of 48x48; and 1000 boxes of a P2 map [1, 200, 336, 256]
@@ -30,7 +33,11 @@ same for every checkout. ``--kernels`` picks among:
     RoIAlign, 300 boxes a frame of 8 conv5_3 maps [8, 37, 50, 512] (an
     800x600 input at stride 16) at 7x7. Beside each,
     ``F.grid_sample`` at the same sample positions (``library_ms``; the
-    same call in every checkout).
+    same call in every checkout). Where the checkout has it,
+    ``crop_and_resize_levels`` at Mask R-CNN's calls of an 8-frame chunk:
+    the FPN levels P2..P5 of 800x1088 canvases at C = 256, 8000 boxes at
+    7x7 and 800 at 14x14, on every level (``library_ms``: four
+    ``F.grid_sample`` calls, one a level).
 
 Run it on each checkout in turns (A, B, B, A) on the same card and compare
 those. Prints one JSON line with the checkout, the times and, in the same
@@ -47,18 +54,22 @@ import sys
 import numpy as np
 import torch
 
-from timing import box_cloud, card, grid_sample_crops, hist_frames, time_ms
+from timing import (box_cloud, card, grid_sample_crops,
+                    grid_sample_level_crops, hist_frames, level_boxes,
+                    time_ms)
 
-NMS_CASES = (  # name, frames, K, max_out, mode
-    ("cross_scale", 16, 256, 256, "union"),
-    ("per_scale", 16, 128, 128, "union"),
-    ("per_scale_batched", 80, 128, 128, "union"),
-    ("rnet", 16, 96, 96, "union"),
-    ("onet", 16, 64, 32, "min"),
-    ("fpn_level", 1, 1000, 1000, "union"),
-    ("rpn", 2, 2048, 300, "union"),
-    ("ssd_chunk", 8, 512, 100, "union"),
-    ("rpn_chunk", 8, 2048, 300, "union"),
+NMS_CASES = (  # name, frames, K, max_out, mode, kept index
+    ("cross_scale", 16, 256, 256, "union", False),
+    ("per_scale", 16, 128, 128, "union", False),
+    ("per_scale_batched", 80, 128, 128, "union", False),
+    ("rnet", 16, 96, 96, "union", False),
+    ("onet", 16, 64, 32, "min", False),
+    ("fpn_level", 1, 1000, 1000, "union", False),
+    ("rpn", 2, 2048, 300, "union", False),
+    ("ssd_chunk", 8, 512, 100, "union", False),
+    ("rpn_chunk", 8, 2048, 300, "union", False),
+    ("mrcnn_proposals", 40, 1000, 1000, "union", False),
+    ("mrcnn_final", 8, 1000, 100, "union", True),
 )
 CROP_CASES = (  # name, boxes a frame, output side, source
     ("facenet", 32, 160, "frames"),
@@ -118,12 +129,12 @@ def main(argv=None) -> int:
 
     if "nms" in kernels:
         rng = np.random.default_rng(2)
-        for name, t, k, max_out, mode in NMS_CASES:
+        for name, t, k, max_out, mode, index in NMS_CASES:
             boxes = torch.from_numpy(box_cloud(rng, t, k)).cuda()
             scores = torch.from_numpy(rng.uniform(0, 1, (t, k)).astype(
                 np.float32)).cuda()
             timed(f"nms.{name}", lambda: MC.nms(boxes, scores, 0.7, max_out,
-                                                0.0, mode))
+                                                0.0, mode, index))
             res[f"nms.{name}.kept"] = int(MC.nms(boxes, scores, 0.7, max_out,
                                                  0.0, mode)[2].sum())
 
@@ -152,6 +163,23 @@ def main(argv=None) -> int:
             timed(f"crop.{name}",
                   lambda: MC.crop_and_resize(images, flat, (size, size), fi),
                   library=library)
+        if hasattr(MC, "crop_and_resize_levels"):
+            from scannertools_tpu_torch.models import maskrcnn as PM
+
+            canvas = (800, 1088)
+            maps = [torch.from_numpy(rng.standard_normal(
+                (8, canvas[0] // s, canvas[1] // s, 256)).astype(
+                    np.float32)).cuda() for s in MC.FPN_STRIDES]
+            for name, k, size in (("levels_7", 1000, 7),
+                                  ("levels_14", 100, 14)):
+                boxes, fi = (torch.from_numpy(a).cuda()
+                             for a in level_boxes(rng, 8, k, canvas))
+                level = PM.fpn_level_for(boxes)
+                _, library = grid_sample_level_crops(
+                    maps, boxes, level, fi, size, size,
+                    MC._sample_positions, MC.FPN_STRIDES)
+                timed(f"crop.{name}", lambda: MC.crop_and_resize_levels(
+                    maps, boxes, level, fi, (size, size)), library=library)
     torch.cuda.synchronize()
     res["card"] = card()
     print(json.dumps(res), flush=True)

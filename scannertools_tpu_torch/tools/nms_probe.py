@@ -4,8 +4,9 @@
 
 Times the ``nms`` wrapper alone (``device_ms``: CUDA events, the card kept
 busy while the host prepares the call; median of ``--reps``) at the face
-path's and the detection models' shapes, on kinds of data that switch the
-kernel's phases on one at a time:
+path's and the detection models' shapes (Mask R-CNN's two calls of an
+8-frame chunk among them, its finals with the kept index), on kinds of
+data that switch the kernel's phases on one at a time:
 
   * ``none_valid``: every score 0, so no row is valid: the launch, the
     loads, the sort and the zeroed outputs;
@@ -49,6 +50,9 @@ from .timing import box_cloud, card, time_ms
 IOU = 0.7
 CASES = (("cross_scale", 16, 256, 256), ("per_scale", 80, 128, 128),
          ("fpn_level", 1, 1000, 1000), ("rpn", 2, 2048, 300),
+         # Mask R-CNN's calls of an 8-frame chunk: the five levels'
+         # proposals and the finals (timed with the kept index)
+         ("mrcnn_proposals", 40, 1000, 1000), ("mrcnn_final", 8, 1000, 100),
          # frames a call against K, for the choice of path
          ("t1_k256", 1, 256, 256), ("t4_k512", 4, 512, 512),
          ("t1_k512", 1, 512, 512), ("t16_k512", 16, 512, 512),
@@ -127,7 +131,8 @@ def main(argv=None) -> int:
                                              f"the {p or 'chosen'} path "
                                              f"differs from nms_plain")
                     res[f"device_ms.{p or 'wrapper'}"] = time_ms(
-                        lambda: MC.nms(boxes, scores, IOU, max_out),
+                        lambda: MC.nms(boxes, scores, IOU, max_out,
+                                       index=name == "mrcnn_final"),
                         args.reps, fence=True)
             if name == "cross_scale":
                 floor[kind] = res

@@ -100,3 +100,63 @@ def grid_sample_crops(images, boxes, oh: int, ow: int, sample_positions):
 
     out = call().reshape(t, c, k, oh, ow).permute(0, 2, 3, 4, 1)
     return out.reshape(t * k, oh, ow, c), call
+
+
+def grid_sample_level_crops(maps, boxes, level, frame_idx, oh: int, ow: int,
+                            sample_positions, strides):
+    """The library yardstick of crop_and_resize_levels: one
+    ``F.grid_sample`` a level over that level's boxes (scaled by its
+    stride), each frame's boxes side by side in the grid's rows, at the
+    crops' clamped sample positions -> (the crops [B, oh, ow, C] in the
+    boxes' order, gathered from the calls' outputs; the calls alone, four
+    for four levels)."""
+    t, c = maps[0].shape[0], maps[0].shape[3]
+    calls, slots = [], []
+    for lvl, (m, stride) in enumerate(zip(maps, strides)):
+        sel = torch.nonzero(level == lvl).squeeze(1)
+        if not sel.numel():
+            continue
+        h, w = m.shape[1:3]
+        b, f = boxes[sel] / stride, frame_idx[sel]
+        # each box's place among its frame's boxes of this level
+        counts = torch.bincount(f, minlength=t)
+        order = torch.argsort(f, stable=True)
+        slot = torch.empty_like(f)
+        slot[order] = torch.arange(len(f), device=f.device) - (
+            torch.cumsum(counts, 0) - counts)[f[order]]
+        k = int(counts.max())
+        ys = sample_positions(b[:, 1], b[:, 3], oh, h)
+        xs = sample_positions(b[:, 0], b[:, 2], ow, w)
+        grid = torch.zeros((t, k, oh, ow, 2), device=b.device)
+        grid[f, slot] = torch.stack(
+            [(xs / max(w - 1, 1) * 2 - 1)[:, None, :].expand(-1, oh, ow),
+             (ys / max(h - 1, 1) * 2 - 1)[:, :, None].expand(-1, oh, ow)],
+            dim=-1)
+        calls.append((m.permute(0, 3, 1, 2).contiguous(),
+                      grid.reshape(t, k * oh, ow, 2)))
+        slots.append((sel, f, slot, k))
+
+    def call():
+        return [F.grid_sample(inp, grid, mode="bilinear",
+                              padding_mode="border", align_corners=True)
+                for inp, grid in calls]
+
+    crops = torch.empty((boxes.shape[0], oh, ow, c), device=boxes.device)
+    for (sel, f, slot, k), out in zip(slots, call()):
+        crops[sel] = out.reshape(t, c, k, oh, ow).permute(
+            0, 2, 3, 4, 1)[f, slot]
+    return crops, call
+
+
+def level_boxes(rng, t: int, k: int, canvas, lo: float = 2.0,
+                hi: float = 1100.0):
+    """[t * k, 4] float32 canvas boxes, sides log-uniform in [lo, hi] (so
+    that the canonical heuristic puts them on every FPN level), some past
+    the canvas's edges and every 9th a zero box, with their frame indices
+    [t * k] int64 (frame-major)."""
+    h, w = canvas
+    xy = rng.uniform(-0.05, 1.0, (t * k, 2)) * (w, h)
+    wh = np.exp(rng.uniform(np.log(lo), np.log(hi), (t * k, 2)))
+    boxes = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+    boxes[::9] = 0.0
+    return boxes, np.repeat(np.arange(t), k).astype(np.int64)

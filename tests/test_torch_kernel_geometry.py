@@ -33,6 +33,7 @@ def _cu_const(source: str, name: str) -> int:
     ("nms.cu", "kSharedMaxK", lambda: MC.NMS_SHARED_MAX_K),
     ("nms.cu", "kMaxWords", lambda: -(-MC.NMS_MAX_K // 64)),
     ("crop_resize.cu", "kMaxOw", lambda: MC.CROP_MAX_OW),
+    ("crop_resize.cu", "kMaxLevels", lambda: len(MC.FPN_STRIDES)),
     ("crop_resize.cu", "kMaxBandRows",
      lambda: max(MC.crop_geometry(1, oh, 8, 3, True)["band_rows"]
                  for oh in range(1, 300))),
@@ -120,3 +121,31 @@ def test_crop_bands_cover_every_row_once(oh):
                                               (256, True, True)])
 def test_crop_geometry_picks_the_kernel(c, aligned, pixels):
     assert MC.crop_geometry(4, 7, 7, c, aligned)["pixels"] is pixels
+
+
+def test_level_crop_strides_scale_boxes_exactly():
+    """The level crop's strides are powers of two, so the kernel's product
+    with 1 / stride is the plain version's (and the JAX package's) division
+    by the stride, bit for bit."""
+    import torch
+
+    from scannertools_tpu_torch.utils.numerics import recip
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -50, 1400, 4096).astype(np.float32))
+    for s in MC.FPN_STRIDES:
+        assert s & (s - 1) == 0 and recip(s) * s == 1.0
+        assert torch.equal(x * recip(s), x / s)
+
+
+@pytest.mark.parametrize("aligned,pixels", [((True,) * 4, True),
+                                            ((True, True, False, True),
+                                             False)])
+def test_level_crop_geometry(aligned, pixels):
+    """One launch of crop_geometry's bands for every box of every level;
+    the channel-vector kernel only where every level is 16-byte aligned
+    (the wrapper's all())."""
+    geo = MC.crop_geometry(8000, 7, 7, 256, all(aligned))
+    assert geo["pixels"] is pixels
+    assert geo["blocks"] == 8000 * geo["bands"] and geo["bands"] == 1
+    assert MC.crop_geometry(800, 14, 14, 256, True)["blocks"] == 800

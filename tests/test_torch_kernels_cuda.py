@@ -17,8 +17,10 @@ and below the kept count, alternating chains within and across tiles,
 all-invalid frames; crops up- and downsampled, on and past the frame's
 edge, degenerate, from several frames in one launch, with C = 1, 3, 4 and
 256 channels (both crop kernels), output widths 227 and 1, rows that start
-off a 16-byte boundary, and frames that do. Inputs are made from a seed
-with numpy.
+off a 16-byte boundary, and frames that do; the level crop (a map a box)
+over ragged FPN levels, with a level off a 16-byte boundary and a bad level
+that traps; Mask R-CNN's two ``nms`` calls on both paths and its forward's
+launches. Inputs are made from a seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -537,3 +539,132 @@ def test_crop_and_resize_kernel_fpn_map(cuda_device):
                                  fi.to(cuda_device))
         assert torch.equal(got.cpu(), MC.crop_and_resize_plain(
             fmap, boxes, (size, size), fi))
+
+
+def _level_case(rng, t, canvas, c, n, levels=4):
+    """The FPN levels of a ``canvas`` (ragged: sides not a multiple of 32)
+    and ``n`` canvas boxes on every level, at and past the edges, zero
+    boxes, from ``t`` frames."""
+    h, w = canvas
+    maps = [torch.from_numpy(rng.standard_normal(
+        (t, -(-h // s), -(-w // s), c)).astype(np.float32))
+        for s in MC.FPN_STRIDES[:levels]]
+    xy = rng.uniform(-20, max(h, w), (n, 2))
+    wh = np.exp(rng.uniform(np.log(2), np.log(4 * max(h, w)), (n, 2)))
+    boxes = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+    boxes[::7] = 0.0
+    boxes[1] = (0, 0, w, h)
+    boxes[2] = (w - 3, h - 2, w + 40, h + 9)
+    level = rng.integers(0, levels, n)
+    fi = rng.integers(0, t, n)
+    return maps, torch.from_numpy(boxes), torch.from_numpy(level), \
+        torch.from_numpy(fi)
+
+
+@pytest.mark.parametrize("c", [3, 256])
+@pytest.mark.parametrize("levels,size", [(4, 7), (4, 14), (2, 5), (1, 9)])
+def test_crop_and_resize_levels_kernel_matches_plain(cuda_device, c, levels,
+                                                     size):
+    """The level crop (a map a box) against its plain version, ``==``, on
+    the card and on the CPU: ragged maps, every level, boxes at and past the
+    edges, zero boxes, several frames, both crop kernels (C = 3 rows, C =
+    256 channel vectors), fewer than four levels."""
+    maps, boxes, level, fi = _level_case(
+        np.random.default_rng(43 + c + size), 3, (100, 140), c, 90, levels)
+    dev = [m.to(cuda_device) for m in maps]
+    args = (boxes.to(cuda_device), level.to(cuda_device), fi.to(cuda_device),
+            (size, size))
+    before = MC.crop_and_resize_levels.launches
+    got = MC.crop_and_resize_levels(dev, *args)
+    assert MC.crop_and_resize_levels.launches == before + 1
+    assert torch.equal(got, MC.crop_and_resize_levels_plain(dev, *args))
+    assert torch.equal(got.cpu(), MC.crop_and_resize_levels_plain(
+        maps, boxes, level, fi, (size, size)))
+
+
+def test_crop_and_resize_levels_kernel_unaligned_map(cuda_device):
+    """A level off a 16-byte boundary: C = 256 takes the row kernel."""
+    maps, boxes, level, fi = _level_case(np.random.default_rng(47), 2,
+                                         (64, 96), 256, 30)
+    dev = [m.to(cuda_device) for m in maps]
+    off = torch.empty(dev[2].numel() + 1, device=cuda_device)[1:].view(
+        dev[2].shape)
+    off.copy_(dev[2])
+    args = (boxes.to(cuda_device), level.to(cuda_device), fi.to(cuda_device),
+            (7, 7))
+    got = MC.crop_and_resize_levels(dev[:2] + [off] + dev[3:], *args)
+    assert torch.equal(got, MC.crop_and_resize_levels(dev, *args))
+
+
+def test_crop_and_resize_levels_kernel_traps_on_a_bad_level(cuda_device):
+    """A level outside [0, len(maps)) stops the kernel before it reads (in
+    a child process: the trap loses the CUDA context)."""
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from scannertools_tpu_torch.models import common as MC
+maps = [torch.zeros((1, 20 // s, 30 // s, 8), device="cuda") for s in (1, 2)]
+boxes = torch.tensor([[0.0, 0.0, 10.0, 10.0]], device="cuda")
+zero = torch.tensor([0], device="cuda")
+MC.crop_and_resize_levels(maps, boxes, torch.tensor([2], device="cuda"),
+                          zero, (4, 4))
+try:
+    torch.cuda.synchronize()
+except RuntimeError:
+    print("RAISED")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert "RAISED" in res.stdout, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", ["shared", "global"])
+@pytest.mark.parametrize("t,k,max_out,index", [(40, 1000, 1000, False),
+                                               (8, 1000, 100, True)])
+def test_nms_kernel_maskrcnn_calls_both_paths(cuda_device, path, t, k,
+                                              max_out, index):
+    """Mask R-CNN's two calls of a chunk, on each path forced: the
+    proposals of five levels of 8 frames, [40, 1000] -> 1000, and the final
+    class-shifted selection with the kept index, [8, 1000] -> 100 at score
+    threshold 0.05."""
+    from scannertools_tpu_torch.tools.nms_probe import path as forced
+
+    boxes, scores = _dense_case(np.random.default_rng(53 + t), t, k,
+                                span=40.0 * (k / 128) ** 0.5)
+    thresh = 0.05 if index else 0.0
+    b, s = boxes.to(cuda_device), scores.to(cuda_device)
+    want = MC.nms_plain(boxes, scores, 0.5, max_out, thresh, index=index)
+    with forced(path):
+        assert MC.nms_geometry(t, k)["path"] == path
+        before = MC.nms.launches
+        got = MC.nms(b, s, 0.5, max_out, thresh, index=index)
+        assert MC.nms.launches == before + 1
+    for g, p in zip(got, want):
+        assert torch.equal(g.cpu(), p)
+
+
+def test_maskrcnn_forward_launches_twice_each(cuda_device):
+    """One Mask R-CNN forward launches two nms (the proposals, the finals)
+    and two level crops (7x7, 14x14), and gives the outputs of the same
+    forward with the kernels' plain versions."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import maskrcnn as PM
+
+    frames = torch.from_numpy(np.random.default_rng(59).uniform(
+        0, 255, (2, 96, 128, 3)).astype(np.float32)).to(cuda_device)
+    state = {k: v.to(cuda_device) for k, v in PM.init_params(0).items()}
+    images, _ = PM.preprocess(frames, 96, 160)
+    n0 = MC.nms.launches
+    c0 = MC.crop_and_resize_levels.launches
+    got = PM.infer(state, images, "R-50-FPN", 300, 200, 20)
+    assert MC.nms.launches == n0 + 2
+    assert MC.crop_and_resize_levels.launches == c0 + 2
+    with mock.patch.object(PM, "nms", MC.nms_plain), \
+            mock.patch.object(PM, "crop_and_resize_levels",
+                              MC.crop_and_resize_levels_plain):
+        want = PM.infer(state, images, "R-50-FPN", 300, 200, 20)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
