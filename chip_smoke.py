@@ -98,6 +98,28 @@ detections in most frames, masks of a quarter of the frame; one
 X-101-32x8d-FPN chunk the same way; the trunk and heads on the card against
 the CPU; one chunk split by stage.
 
+Phase 7 drives OpenPose at 640x480. ``pose_peaks``
+(kernels/csrc/peaks.cu) is held to ``find_peaks_plain`` (equal) on the
+seeded body net's maps of an 8-frame chunk (the record, timed), and on
+random, tied, sparse and ragged maps and one whose best peaks all fall to
+one thread. ``OpenPose`` runs over 16 frames of the face phase's video in
+chunks of 8 on the port's seeded body (its two output layers scaled,
+POSE_HEAD_SCALES, so that people form), written as npz, twice; its rows
+must equal a run with ``find_peaks`` and the crop patched to their plain
+versions, with one ``pose_peaks`` a chunk. One chunk of two scales with
+the cubic upsample, one of the CPM2 chain and one with ``compute_face``
+and ``compute_hands`` (the chunk's frames reach the decode on the card,
+which cuts the face and hand crops there with the crop kernel's gray mode
+and runs both crop nets; the grouping gains 3 drawn people a frame, whose
+faces the seeded people lack; the gray crop's launches are this run's)
+are held the same way. Drawn heat and PAF maps of those people go through
+``pose_peaks``, ``limb_scores`` and ``group_people`` and must give exactly
+them; ``OpenPoseDecode`` then runs the face and hand nets on 368x368
+crops of the chunk's frames (the gray crop equal to its plain version and
+timed at the 48 hand crops), and the crop nets and the body net are held
+to the CPU. One chunk is split by stage. Each phase logs its
+wall seconds.
+
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
 ``{"kernels": [...]}``, the card's name and power limit from nvidia-smi,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit
@@ -181,6 +203,17 @@ MRCNN_CONFIDENCE = 0.25
 MRCNN_LAUNCHES_PER_CHUNK = {"nms": 2, "crop_and_resize": 0,
                             "crop_and_resize_levels": 2}
 MRCNN_CPU_MIN_SIZE = 320  # card against CPU: one frame at a 320x448 canvas
+# phase 7: OpenPose on POSE_FRAMES frames of FACE_W x FACE_H (the face
+# phase's drifting blobs) in chunks of POSE_CHUNK, the body at stages=6
+POSE_FRAMES, POSE_CHUNK = 16, 8
+# the port's seeded body maps are near 1e-4 (LeCun-normal layers under
+# ReLU), where no pixel clears the 0.1 peak threshold; its two output
+# layers scaled so give peaks, feasible limbs and 14-15 people a frame
+POSE_HEAD_SCALES = (("Mconv7_stage6_L1.weight", 10000.0),
+                    ("Mconv7_stage6_L2.weight", 3000.0))
+POSE_PEOPLE = 3  # drawn people a frame
+POSE_CROP = 368  # the wrapper's face and hand crops
+POSE_CPU_HW = (240, 320)  # card against CPU: the body net on one frame
 # card against CPU, float32 nets: largest difference over largest value
 CARD_CPU_RTOL = 1e-4
 CROP_LIBRARY_ATOL = 0.1
@@ -2209,6 +2242,653 @@ def run_maskrcnn_pipeline(db: str):
     return launches[0]
 
 
+# ------------------------------------------------------------ phase 7
+
+
+def pose_state() -> dict:
+    """The port's seeded OpenPoseBody weights with its two output layers
+    scaled by POSE_HEAD_SCALES."""
+    from scannertools_tpu_torch.models import pose as PP
+
+    state = PP.init_params(0)
+    for key, scale in POSE_HEAD_SCALES:
+        state[key] = state[key] * scale
+    return state
+
+
+def write_pose_weights(d: str) -> str:
+    """pose_state in the JAX package's layout, as an uncompressed npz (206
+    MB) -> its path."""
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.models import weights
+
+    path = os.path.join(d, "openpose.npz")
+    np.savez(path, **weights._flatten(PP.to_flax(pose_state())))
+    return path
+
+
+def pose_frames(rows) -> "torch.Tensor":
+    """Frames of the pose video, float32 on the card."""
+    import torch
+
+    return torch.from_numpy(FaceDecoder(POSE_FRAMES, FACE_H, FACE_W)
+                            .read_frames(list(rows))).cuda().float()
+
+
+def _pose_launches() -> dict:
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import pose as PP
+
+    return {"pose_peaks": PP.find_peaks.launches,
+            "crop_and_resize": MC.crop_and_resize.launches}
+
+
+def _reset_pose_launches() -> None:
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import pose as PP
+
+    PP.find_peaks.launches = MC.crop_and_resize.launches = 0
+
+
+def pose_graph(sc, frame, graph: str, weights_path: str):
+    """The output columns of pose graph ``graph``: "openpose" (one scale,
+    linear), "multiscale" (two scales, cubic), "crop_nets" (one scale,
+    linear, with the face and hand crop nets on their seeded weights) or
+    "cpm2" (CPM2Input -> CPM2 -> CPM2Output)."""
+    if graph == "cpm2":
+        pre = sc.ops.CPM2Input(frame=frame)
+        n = sc.ops.CPM2(cpm2_input=pre, weights_path=weights_path)
+        return sc.ops.CPM2Output(cpm2_resized_map=n[0], cpm2_joints=n[1],
+                                 original_frame_info=sc.ops.InfoFromFrame(
+                                     frames=frame))
+    params = {"openpose": {},
+              "multiscale": dict(pose_num_scales=2, pose_upsample="cubic"),
+              "crop_nets": dict(compute_face=True, compute_hands=True)}
+    return sc.ops.OpenPose(frame=frame, weights_path=weights_path,
+                           **params[graph])
+
+
+def run_pose_graph(db: str, weights_path: str, graph: str = "openpose",
+                   frames: int = POSE_FRAMES, runs: int = 1):
+    """Pose graph ``graph`` over the first ``frames`` of the pose video
+    through Client.run on the card, in POSE_CHUNK-frame chunks, ``runs``
+    times -> (the loaded rows, [launches of each run], [each run's
+    seconds, frames/s and span totals]). The first run reads and converts
+    the npz."""
+    import torch
+
+    import scannertools_tpu_torch as st
+
+    stream_cls = synthetic_stream_class(
+        POSE_FRAMES, FACE_H, FACE_W,
+        lambda: FaceDecoder(POSE_FRAMES, FACE_H, FACE_W))
+    sc = st.Client(db_path=db, device="cuda")
+    frame = sc.io.Input([stream_cls(sc, "pose_video")])
+    if frames < POSE_FRAMES:
+        frame = sc.streams.Gather(frame, [list(range(frames))])
+    col = pose_graph(sc, frame, graph, weights_path)
+    out = st.NamedStream(sc, "poses")
+    perf = st.PerfParams.manual(work_packet_size=POSE_CHUNK, ingest="rgb")
+    launches, per_run = [], []
+    for _ in range(runs):
+        before = sc.profiler.totals()
+        _reset_pose_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output(col, [out]), perf,
+               cache_mode=st.CacheMode.Overwrite)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches.append(_pose_launches())
+        per_run.append({
+            "seconds": seconds, "frames_per_s": frames / seconds,
+            "totals_s": {k: v - before.get(k, 0.0)
+                         for k, v in sc.profiler.totals().items()}})
+    return list(out.load()), launches, per_run
+
+
+def plain_pose_graph(db: str, weights_path: str, **kw):
+    """run_pose_graph with find_peaks and the crop patched to their plain
+    versions -> the loaded rows."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.ops import pose as POP
+
+    with mock.patch.object(PP, "find_peaks", PP.find_peaks_plain), \
+            mock.patch.object(POP, "crop_and_resize",
+                              MC.crop_and_resize_plain):
+        rows, launches, _ = run_pose_graph(db, weights_path, **kw)
+    if any(n for lc in launches for n in lc.values()):
+        raise AssertionError(f"the plain pose graph launched kernels: "
+                             f"{launches}")
+    return rows
+
+
+def _pose_rows_equal(got, want) -> bool:
+    """The same poses, byte for byte."""
+    return len(got) == len(want) and all(
+        [p.serialize() for p in g] == [p.serialize() for p in w]
+        for g, w in zip(got, want))
+
+
+def crop_items(rows) -> dict:
+    """The face and hand crops OpenPoseDecode cuts for ``rows``, counted as
+    it picks them: a face where face_bbox scores above 0.05, a hand where
+    the wrist and elbow are seen (the body keypoints, which the crop nets
+    leave as they are)."""
+    from scannertools_tpu_torch.ops import pose as POP
+
+    P = POP.Pose
+    n = {"face": 0, "hand": 0}
+    for f in rows:
+        for p in f:
+            (fx0, _), (fx1, _), fs = p.face_bbox()
+            n["face"] += int(fs > 0.05 and fx1 > fx0)
+            n["hand"] += sum(POP._hand_box(p, wrist, elbow) is not None
+                             for wrist, elbow in ((P.LWrist, P.LElbow),
+                                                  (P.RWrist, P.RElbow)))
+    return n
+
+
+def check_crop_net_graph(db: str, weights_path: str) -> dict:
+    """OpenPose with compute_face and compute_hands over one POSE_CHUNK
+    chunk through Client.run: the chunk's frames reach the decode on the
+    card, which cuts the face and hand crops there with the gray crop (one
+    launch a net) and runs both crop nets. The seeded body's people find
+    no nose and both ears together, so no face: the grouping of each frame
+    gains that frame's drawn people (drawn_places), whose faces and
+    forearms are whole. Its rows must equal the same graph's with
+    find_peaks and the crop patched to their plain versions -> the record,
+    with the launches of that run."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import pose as PP
+
+    group = PP.group_people
+    drawn = drawn_places(POSE_CHUNK, FACE_W)
+    calls = []
+
+    def with_drawn(peaks, valid, scores):
+        i = len(calls) % POSE_CHUNK  # the decode groups frames in order
+        calls.append(i)
+        return group(peaks, valid, scores) + [
+            (0.9, drawn_keypoints(pts)) for pts in drawn[i]]
+
+    with mock.patch.object(PP, "group_people", with_drawn):
+        rows, launches, runs = run_pose_graph(
+            os.path.join(db, "crop_nets"), weights_path, graph="crop_nets",
+            frames=POSE_CHUNK)
+        calls.clear()
+        plain = plain_pose_graph(os.path.join(db, "crop_nets_plain"),
+                                 weights_path, graph="crop_nets",
+                                 frames=POSE_CHUNK)
+    items = crop_items(rows)
+    want = {"pose_peaks": 1,
+            "crop_and_resize": int(items["face"] > 0) + int(items["hand"] > 0)}
+    result = {"run": "pose_pipeline", "graph": "crop_nets",
+              "frames": POSE_CHUNK, "launches": launches, "runs": runs,
+              "people_per_frame": [len(f) for f in rows],
+              "drawn_per_frame": POSE_PEOPLE, "crops": items,
+              "rows_equal_plain": _pose_rows_equal(rows, plain)}
+    log(result)
+    if not (items["face"] and items["hand"]):
+        raise AssertionError(f"the crop-net chunk cut {items}: both nets "
+                             f"must run")
+    if launches != [want] or not result["rows_equal_plain"]:
+        raise AssertionError(f"pose graph crop_nets: launches {launches}, "
+                             f"want [{want}]; rows equal to the plain run: "
+                             f"{result['rows_equal_plain']}")
+    written = {"face": sum(bool(p.face_keypoints().any()) for f in rows
+                           for p in f),
+               "hand": sum(bool(hk.any()) for f in rows for p in f
+                           for hk in p.hand_keypoints())}
+    if written != items:
+        raise AssertionError(f"the crop nets wrote {written} keypoint "
+                             f"sets, the decode cut {items} crops")
+    return result
+
+
+# The drawn people: parts (x, y offsets from the neck) and the limbs drawn
+# between them (LIMB_SEQ indices): neck, shoulders, elbows, wrists, nose,
+# eyes and ears; 11 limbs, so a person has 12 parts.
+POSE_PARTS = {1: (0, 0), 2: (-40, 0), 5: (40, 0), 3: (-55, 60),
+              4: (-60, 120), 6: (55, 60), 7: (60, 120), 0: (0, -50),
+              14: (-12, -60), 15: (12, -60), 16: (-25, -55),
+              17: (25, -55)}
+POSE_LIMBS = (0, 1, 2, 3, 4, 5, 12, 13, 14, 15, 16)
+
+
+def drawn_places(t: int, w: int) -> list:
+    """POSE_PEOPLE people a frame at known places: for each of t frames,
+    a {part: (x, y)} in pixels for each person."""
+    people = []
+    for i in range(t):
+        frame = []
+        for p in range(POSE_PEOPLE):
+            nx = 110 + p * (w - 220) // max(POSE_PEOPLE - 1, 1) + 3 * i
+            ny = 180 + 7 * p + 2 * i
+            frame.append({part: (nx + dx, ny + dy)
+                          for part, (dx, dy) in POSE_PARTS.items()})
+        people.append(frame)
+    return people
+
+
+def drawn_keypoints(pts: dict) -> np.ndarray:
+    """A drawn person as group_people gives it: [18, 3] (x, y, 0.9)."""
+    from scannertools_tpu_torch.models import pose as PP
+
+    kp = np.zeros((PP.N_PARTS, 3), np.float32)
+    for part, (x, y) in pts.items():
+        kp[part] = (x, y, 0.9)
+    return kp
+
+
+def drawn_people(t: int, h: int, w: int):
+    """Heat [t, 19, h, w] and PAF [t, 38, h, w] maps (float32, numpy) of
+    the drawn_places people, and those places: a single pixel of 0.9 at
+    each part, and for each limb a corridor of half-width 2 px along the
+    segment holding its unit vector in the limb's two PAF channels (as
+    tests/test_pose.py draws them)."""
+    from scannertools_tpu_torch.models import pose as PP
+
+    heat = np.zeros((t, PP.N_HEAT, h, w), np.float32)
+    paf = np.zeros((t, PP.N_PAF, h, w), np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    people = drawn_places(t, w)
+    for i in range(t):
+        for pts in people[i]:
+            for part, (x, y) in pts.items():
+                heat[i, part, y, x] = 0.9
+            for limb in POSE_LIMBS:
+                a, b = PP.LIMB_SEQ[limb]
+                (ax, ay), (bx, by) = pts[a], pts[b]
+                d = np.array([bx - ax, by - ay], np.float32)
+                u = d / np.linalg.norm(d)
+                s = np.clip(((xx - ax) * d[0] + (yy - ay) * d[1])
+                            / float(d @ d), 0.0, 1.0)
+                near = np.hypot(xx - ax - s * d[0], yy - ay - s * d[1]) <= 2
+                cx, cy = PP.PAF_IDX[limb]
+                paf[i, cx][near] = u[0]
+                paf[i, cy][near] = u[1]
+    return heat, paf, people
+
+
+def check_drawn_people() -> dict:
+    """The drawn maps of a POSE_CHUNK chunk at 480x640 through pose_peaks
+    (held to find_peaks_plain, fill rows and all), limb_scores and
+    group_people: exactly the drawn people. Then OpenPoseDecode with
+    compute_face and compute_hands on the chunk's frames on the card: the
+    gray crops held to their plain versions, the rows equal to the decode
+    with the crop patched to its plain version, and the crop nets on one
+    face and one hand crop held to the CPU -> the record, with the gray
+    crop's timings at this call."""
+    from unittest import mock
+
+    import torch
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.ops import pose as POP
+
+    t, h, w = POSE_CHUNK, FACE_H, FACE_W
+    heat, paf, drawn = drawn_people(t, h, w)
+    heat, paf = torch.from_numpy(heat).cuda(), torch.from_numpy(paf).cuda()
+    peaks, valid = PP.find_peaks(heat)
+    for g, p in zip((peaks, valid), PP.find_peaks_plain(heat)):
+        if not torch.equal(g, p):
+            raise AssertionError("pose_peaks disagrees with its plain "
+                                 "version on the drawn maps")
+    scores = PP.limb_scores(paf, peaks, valid)
+    dims = torch.tensor([[h, w]], dtype=torch.int32).repeat(t, 1)
+    hp, hv, hs = (a.cpu().numpy() for a in (peaks, valid, scores))
+    for i in range(t):
+        got = sorted(PP.group_people(hp[i], hv[i], hs[i]),
+                     key=lambda p: p[1][1, 0])
+        if len(got) != POSE_PEOPLE:
+            raise AssertionError(f"frame {i}: {len(got)} people, drawn "
+                                 f"{POSE_PEOPLE}")
+        for (score, kp), pts in zip(got, drawn[i]):
+            if not np.array_equal(kp, drawn_keypoints(pts)) or \
+                    not score > 0.4:
+                raise AssertionError(f"frame {i}: a person {kp.tolist()} "
+                                     f"(score {score}) is not drawn")
+    frames = pose_frames(range(t))
+    _reset_pose_launches()
+    poses = POP.openpose_decode(None, peaks, valid, scores, dims,
+                                frame=frames, compute_face=True,
+                                compute_hands=True)
+    launches = _pose_launches()
+    if launches["crop_and_resize"] != 2:
+        raise AssertionError(f"the decode launched {launches}, want one "
+                             f"crop a net")
+    with mock.patch.object(POP, "crop_and_resize",
+                           MC.crop_and_resize_plain):
+        plain = POP.openpose_decode(None, peaks, valid, scores, dims,
+                                    frame=frames, compute_face=True,
+                                    compute_hands=True)
+    if not _pose_rows_equal(poses, plain):
+        raise AssertionError("the decode's rows differ from the plain "
+                             "crop's")
+    # the decode's face and hand items, as it builds them
+    P = POP.Pose
+    items = {"face": [], "hand": []}
+    for i, fp in enumerate(poses):
+        for p in fp:
+            (fx0, fy0), (fx1, fy1), _ = p.face_bbox()
+            items["face"].append((i, fx0, fy0, fx1, fy1))
+            for wrist, elbow in ((P.LWrist, P.LElbow), (P.RWrist, P.RElbow)):
+                items["hand"].append((i, *POP._hand_box(p, wrist,
+                                                        elbow)[:4]))
+    record = {"people": t * POSE_PEOPLE, "launches": launches}
+    nets = {"face": (PP.init_face_params(0), P.FACE_KEYPOINTS),
+            "hand": (PP.init_hand_params(0), P.HAND_KEYPOINTS)}
+    for name, rows in items.items():
+        it = torch.tensor(rows, dtype=torch.float32, device="cuda")
+        crops = POP.crop_batch(frames, it, POSE_CROP)
+        with mock.patch.object(POP, "crop_and_resize",
+                               MC.crop_and_resize_plain):
+            want = POP.crop_batch(frames, it, POSE_CROP)
+        if not torch.equal(crops, want):
+            raise AssertionError(f"the gray crop disagrees with its plain "
+                                 f"version on the {name} crops")
+        outside = int(((it[:, 1:3] < 0) | (it[:, 3:5] > 1)).any(1).sum())
+        state, _ = nets[name]
+        with torch.no_grad():
+            cpu = PP.crop_maps(state, crops[:1].cpu().permute(0, 3, 1, 2))
+            card = PP.crop_maps({k: v.cuda() for k, v in state.items()},
+                                crops[:1].permute(0, 3, 1, 2)).cpu()
+        err = float((card - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        if not err <= CARD_CPU_RTOL * scale:
+            raise AssertionError(f"the {name} net: card and CPU differ by "
+                                 f"{err} (largest {scale})")
+        record[name] = {"crops": len(rows), "past_an_edge": outside,
+                        "card_vs_cpu": {"max_abs_diff": err,
+                                        "max_abs": scale}}
+        if name == "hand":  # the record's call: 2 hands a person
+            boxes, fi = POP.crop_boxes(it, h, w)  # frame-major
+            args = (frames, boxes, (POSE_CROP, POSE_CROP), fi)
+            bound, by = crop_bound(frames, boxes.view(t, -1, 4), POSE_CROP,
+                                   POSE_CROP)
+            record["gray_crop"] = {
+                "shape": [len(rows), POSE_CROP, POSE_CROP, 3],
+                "ms": time_ms(lambda: MC.crop_and_resize(*args,
+                                                         gray=True)),
+                "device_ms": time_ms(lambda: MC.crop_and_resize(
+                    *args, gray=True), fence=True),
+                "plain_ms": time_ms(lambda: MC.crop_and_resize_plain(
+                    *args, gray=True), reps=5, warm=1),
+                "library_ms": None, "max_abs_err": 0.0,
+                "bound_ms": bound, "bound_by": by}
+    return record
+
+
+def pose_stage_ms(state: dict) -> dict:
+    """One POSE_CHUNK-frame chunk through OpenPoseForward on the card, each
+    stage bracketed by CUDA events on the compute stream -> {stage: ms
+    summed over its calls}, the chunk's ms, the grouping's host ms over the
+    chunk, and the busy share by torch.profiler in a further call."""
+    from unittest import mock
+
+    import torch
+
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.ops import pose as POP
+
+    frames = pose_frames(range(POSE_CHUNK))
+    arrays = {}
+
+    def forward():
+        arrays["out"] = POP.openpose_forward(None, state, frames)
+
+    forward()  # warm: cuDNN plans, resize taps
+    marks = []
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((stage, start, end))
+            return out
+        # find_peaks counts its launches on the name it is reached by
+        run.launches = getattr(fn, "launches", 0)
+        return run
+
+    patches = [(PP, "body_maps", "body_net"), (PP, "resize_hw", "resize"),
+               (PP, "find_peaks", "pose_peaks"),
+               (PP, "limb_scores", "limb_scores")]
+    with contextlib.ExitStack() as stack:
+        for obj, name, stage in patches:
+            stack.enter_context(mock.patch.object(
+                obj, name, timed(stage, getattr(obj, name))))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward()
+        end.record()
+        torch.cuda.synchronize()
+    out = {"chunk": start.elapsed_time(end)}
+    for stage, s, e in marks:
+        out[stage] = out.get(stage, 0.0) + s.elapsed_time(e)
+    peaks, valid, scores, _ = (a.cpu().numpy() for a in arrays["out"])
+    t0 = time.perf_counter()
+    people = [PP.group_people(peaks[i], valid[i], scores[i])
+              for i in range(POSE_CHUNK)]
+    out["grouping_host"] = (time.perf_counter() - t0) * 1e3
+    out["people_per_frame"] = [len(p) for p in people]
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out["kernels_ms"] = busy if busy > 0 else "not measured"
+    out["busy_share"] = busy / wall if busy > 0 else "not measured"
+    out["frames"] = POSE_CHUNK
+    return out
+
+
+def crop_net_stage_ms(frames, n_face: int, n_hand: int) -> dict:
+    """The crop nets of a decode with n_face face and n_hand hand crops of
+    POSE_CROP px: the gray crop and each net's forward, CUDA events."""
+    import torch
+
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.ops import pose as POP
+
+    out = {}
+    rng = np.random.default_rng(14)
+    for name, n, init, n_kp in (
+            ("face", n_face, PP.init_face_params, PP.FACE_KEYPOINTS),
+            ("hand", n_hand, PP.init_hand_params, PP.HAND_KEYPOINTS)):
+        state = {k: v.cuda() for k, v in init(0).items()}
+        xy = rng.uniform(0.0, 0.8, (n, 2))
+        items = torch.tensor(np.concatenate(
+            [rng.integers(0, frames.shape[0], (n, 1)), xy, xy + 0.15], 1),
+            dtype=torch.float32, device="cuda")
+        crops = POP.crop_batch(frames, items, POSE_CROP)
+        with torch.no_grad():
+            out[f"{name}_net"] = time_ms(
+                lambda: PP.crop_keypoints(state, crops, n_kp), reps=3,
+                warm=1)
+        out[f"{name}_crops"] = n
+    return out
+
+
+def pose_card_vs_cpu(state: dict) -> dict:
+    """The body net's maps on one frame at POSE_CPU_HW, on the card and on
+    the CPU: no discrete decision intervenes."""
+    import torch
+
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.utils.numerics import resize_hw
+
+    frame = pose_frames([0]).cpu()
+    x = resize_hw((frame / 256.0 - 0.5).permute(0, 3, 1, 2), 2,
+                  *POSE_CPU_HW, "linear").contiguous()
+    with torch.no_grad():
+        cpu = PP.body_maps(state, x)
+        card = PP.body_maps({k: v.cuda() for k, v in state.items()},
+                            x.cuda())
+    out = {"hw": list(POSE_CPU_HW)}
+    for name, c, g in zip(("heat", "paf"), cpu, card):
+        err = float((g.cpu() - c).abs().max())
+        scale = float(c.abs().max())
+        if not err <= CARD_CPU_RTOL * scale:
+            raise AssertionError(f"the body net's {name}: card and CPU "
+                                 f"differ by {err} (largest {scale})")
+        out[name] = {"max_abs_diff": err, "max_abs": scale}
+    return out
+
+
+def peaks_bound(heat) -> tuple:
+    """Bytes: the 18 part maps read once and the peaks and valid flags
+    written; operations: a compare a pixel, and eight more for each pixel
+    above the threshold (this run's data)."""
+    from scannertools_tpu_torch.models import pose as PP
+
+    t, _, h, w = heat.shape
+    parts = heat[:, :PP.N_PARTS]
+    above = int((parts > PP._f32(PP.THRE_PEAK)).sum())
+    nbytes = parts.numel() * 4 + t * PP.N_PARTS * PP.MAX_PEAKS * (12 + 1)
+    return bound_ms(nbytes, parts.numel() + 8 * above)
+
+
+def check_pose_peaks(state: dict) -> dict:
+    """pose_peaks held to find_peaks_plain (equal) on the seeded net's maps
+    of a POSE_CHUNK chunk at 480x640 (the main path's call, and the
+    record), random maps, maps with ties, a map whose best peaks all fall
+    to one thread, fewer than 24 peaks, and ragged sizes; timed at the
+    main path's call."""
+    import torch
+
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.utils.numerics import div
+
+    frames = pose_frames(range(POSE_CHUNK))
+    x = (div(frames, 256.0) - 0.5).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        heat, _ = PP.infer_maps(state, x, (FACE_H, FACE_W))
+    heat = heat.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = {"net": heat,
+             "random": torch.randn((2, 19, 97, 131), device="cuda",
+                                   generator=gen),
+             "ties": torch.zeros((2, 19, 60, 80), device="cuda"),
+             "one_thread": torch.zeros((1, 19, FACE_H, FACE_W),
+                                       device="cuda"),
+             "few": torch.zeros((1, 57, 31, 45), device="cuda"),
+             "small": torch.rand((3, 19, 5, 7), device="cuda",
+                                 generator=gen)}
+    cases["ties"][:, :, 1::3, 1::3] = 0.5
+    flat = cases["one_thread"].view(1, 19, -1)
+    flat[:, :, ::512] = torch.linspace(0.2, 0.9, flat[:, :, ::512].shape[-1],
+                                       device="cuda")
+    cases["few"][0, 3, 0, 2] = cases["few"][0, 3, 5, 5] = 0.7
+    for name, hm in cases.items():
+        got = PP.find_peaks(hm)
+        want = PP.find_peaks_plain(hm)
+        ok = all(torch.equal(g, p) for g, p in zip(got, want))
+        n = int(got[1].sum())
+        log({"check": "pose_peaks", "maps": name, "shape": list(hm.shape),
+             "valid_peaks": n, "equal": ok})
+        if not ok:
+            raise AssertionError(f"pose_peaks disagrees with its plain "
+                                 f"version on the {name} maps")
+    bound, by = peaks_bound(heat)
+    record = {
+        "ms": time_ms(lambda: PP.find_peaks(heat)),
+        "device_ms": time_ms(lambda: PP.find_peaks(heat), fence=True),
+        "plain_ms": time_ms(lambda: PP.find_peaks_plain(heat), reps=5,
+                            warm=1),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0}
+    log({"timing": "pose_peaks", "shape": list(heat.shape),
+         "valid_peaks_per_frame": (PP.find_peaks(heat)[1].sum((1, 2))
+                                   .tolist()),
+         "library": "none: no single torch call finds local maxima and "
+                    "keeps top_k's tie order", **record})
+    return record
+
+
+def run_pose_pipeline(db: str):
+    """Phase 7 -> ({kernel: launches of the main path's first run}, the
+    pose_peaks record); every check raises."""
+    import torch
+
+    state = pose_state()
+    record = check_pose_peaks({k: v.cuda() for k, v in state.items()})
+    weights = write_pose_weights(db)
+    chunks = -(-POSE_FRAMES // POSE_CHUNK)
+    # twice: the first run's frames/s holds the npz read, the second's not
+    rows, launches, per_run = run_pose_graph(os.path.join(db, "pose"),
+                                             weights, runs=2)
+    plain = plain_pose_graph(os.path.join(db, "pose_plain"), weights)
+    want = {"pose_peaks": chunks, "crop_and_resize": 0}
+    counts = [len(f) for f in rows]
+    result = {"run": "pose_pipeline", "graph": "openpose",
+              "frames": POSE_FRAMES, "height": FACE_H, "width": FACE_W,
+              "launches": launches, "runs": per_run,
+              "people_per_frame": counts,
+              "rows_equal_plain": _pose_rows_equal(rows, plain)}
+    log(result)
+    if any(lc != want for lc in launches):
+        raise AssertionError(f"OpenPose: launches {launches}, want {want} "
+                             f"each run")
+    if not result["rows_equal_plain"] or len(rows) != POSE_FRAMES:
+        raise AssertionError("OpenPose: rows differ from the plain "
+                             "kernels' run")
+    for f in rows:
+        for p in f:
+            kp = p.pose_keypoints()
+            seen = kp[:, 2] > 0
+            if not (np.isfinite(p._kp).all() and p._score > 0.4
+                    and (kp[seen, :2] >= 0).all()
+                    and (kp[seen, :2] < 1).all()):
+                raise AssertionError(f"a pose out of its contract: "
+                                     f"{p._score} {kp.tolist()}")
+    for graph in ("multiscale", "cpm2"):
+        g_rows, g_launches, g_runs = run_pose_graph(
+            os.path.join(db, graph), weights, graph=graph,
+            frames=POSE_CHUNK)
+        g_plain = plain_pose_graph(os.path.join(db, graph + "_plain"),
+                                   weights, graph=graph, frames=POSE_CHUNK)
+        g_result = {"run": "pose_pipeline", "graph": graph,
+                    "frames": POSE_CHUNK, "launches": g_launches,
+                    "runs": g_runs,
+                    "people_per_frame": [len(f) for f in g_rows],
+                    "rows_equal_plain": _pose_rows_equal(g_rows, g_plain)}
+        log(g_result)
+        if g_launches != [{"pose_peaks": 1, "crop_and_resize": 0}] or \
+                not g_result["rows_equal_plain"]:
+            raise AssertionError(f"pose graph {graph}: {g_result}")
+    crop_nets = check_crop_net_graph(db, weights)
+    drawn = check_drawn_people()
+    log({"pose_drawn_people": drawn})
+    log({"pose_card_vs_cpu": pose_card_vs_cpu(state)})
+    stages = pose_stage_ms({k: v.cuda() for k, v in state.items()})
+    stages.update(crop_net_stage_ms(pose_frames(range(POSE_CHUNK)),
+                                    POSE_CHUNK * POSE_PEOPLE,
+                                    2 * POSE_CHUNK * POSE_PEOPLE))
+    log({"pose_stages_ms": stages, "shape": [POSE_CHUNK, FACE_H, FACE_W]})
+    torch.cuda.synchronize()
+    # the body path's first run, and the gray crop's launches from the
+    # crop-net chunk's run
+    main_launches = dict(launches[0])
+    main_launches["crop_and_resize"] += \
+        crop_nets["launches"][0]["crop_and_resize"]
+    return main_launches, record, drawn["gray_crop"]
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2225,25 +2905,35 @@ def main() -> int:
     log({"phase": "build", "sources": build.sources(),
          "seconds": time.perf_counter() - t0})
 
-    records = check_kernels()
-    records["flow_update"] = check_flow_update()
-    records["nms"] = check_nms()
-    records["crop_and_resize"] = check_crop()
-    check_level_crop()
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log({"phase": name, "seconds": time.perf_counter() - t0})
+        return out
+
+    records = phase("1: histograms", check_kernels)
+    records["flow_update"] = phase("1: flow_update", check_flow_update)
+    records["nms"] = phase("1: nms", check_nms)
+    records["crop_and_resize"] = phase("1: crop", check_crop)
+    phase("1: level crop", check_level_crop)
 
     db = tempfile.mkdtemp(prefix="chip_smoke_db_")
     try:
-        launches = run_pipeline(db)
-        flow_launches = run_flow_pipeline(db)
-        face_launches = run_face_pipeline(db)
-        det_launches = run_detection_pipeline(db)
-        mrcnn_launches = run_maskrcnn_pipeline(db)
+        launches = phase("2: shot detection", run_pipeline, db)
+        flow_launches = phase("3: flow", run_flow_pipeline, db)
+        face_launches = phase("4: faces", run_face_pipeline, db)
+        det_launches = phase("5: detection", run_detection_pipeline, db)
+        mrcnn_launches = phase("6: Mask R-CNN", run_maskrcnn_pipeline, db)
+        pose_launches, records["pose_peaks"], gray = phase(
+            "7: pose", run_pose_pipeline, db)
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
     log({"launches_by_path": {"faces": face_launches,
                               "detection": det_launches,
-                              "maskrcnn": mrcnn_launches}})
+                              "maskrcnn": mrcnn_launches,
+                              "pose": pose_launches}})
+    log({"timing": "crop_and_resize", "call": "pose_gray_hands", **gray})
     kernels = [
         {"name": "hist_rgb", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/histogram.cu",
@@ -2271,12 +2961,20 @@ def main() -> int:
         {"name": "crop_and_resize", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/crop_resize.cu",
          "replaces": "scannertools_tpu/models/common.py:105",
-         # the level crop (Mask R-CNN's) is the same kernel source
+         # the level crop (Mask R-CNN's) and the gray mode (OpenPose's)
+         # are the same kernel source
          "launches": (face_launches["crop_and_resize"]
                       + det_launches["crop_and_resize"]
                       + mrcnn_launches["crop_and_resize"]
-                      + mrcnn_launches["crop_and_resize_levels"]),
+                      + mrcnn_launches["crop_and_resize_levels"]
+                      + pose_launches["crop_and_resize"]),
          **records["crop_and_resize"]},
+        # no single torch call finds local maxima with top_k's tie order
+        {"name": "pose_peaks", "route": "cuda",
+         "source": "scannertools_tpu_torch/kernels/csrc/peaks.cu",
+         "replaces": "scannertools_tpu/models/pose.py:363",
+         "launches": pose_launches["pose_peaks"], **records["pose_peaks"],
+         "library_ms": None},
     ]
     log({"kernels": kernels})
     print(card(), flush=True)

@@ -81,6 +81,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBandRows = 16;
 constexpr int kMaxOw = 2048;
 constexpr int kMaxLevels = 4;
+// 1 / 255 in float32: the gray mode's division, as under jax.jit
+constexpr float kInv255 = 1.f / 255.f;
 
 // The maps of a launch: one for st_crop_resize, one per FPN level for
 // st_crop_resize_levels, each [t, h, w, c] with the reciprocal of its
@@ -101,6 +103,9 @@ struct Taps {
 
 // The two nonzero taps of output position `o` of `n_out` along an axis of
 // `size` source pixels, for the box side [lo, hi); offsets times `stride`.
+// kGray: the position is not clamped to [0, size - 1]; a tap outside the
+// axis gets weight 0 and its offset clamped to the edge.
+template <bool kGray>
 __device__ __forceinline__ Taps taps(float lo, float hi, int o, float inv_n,
                                      int size, int stride) {
   const float d = __fsub_rn(hi, lo);
@@ -108,16 +113,35 @@ __device__ __forceinline__ Taps taps(float lo, float hi, int o, float inv_n,
   const float v = __fsub_rn(__fmul_rn(__fmul_rn(d, p), inv_n), 0.5f);
   const float top = fmaxf(__fsub_rn(d, 1.f), 0.f);
   float s = __fadd_rn(lo, fminf(fmaxf(v, 0.f), top));
-  s = fminf(fmaxf(s, 0.f), static_cast<float>(size - 1));
+  const float last = static_cast<float>(size - 1);
+  if constexpr (!kGray) s = fminf(fmaxf(s, 0.f), last);
   const float f0 = floorf(s);
   const float f1 = __fadd_rn(f0, 1.f);
   Taps t;
-  const int i0 = static_cast<int>(f0);
-  t.i0 = i0 * stride;
-  t.i1 = min(i0 + 1, size - 1) * stride;
   t.w0 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(s, f0))));
   t.w1 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(s, f1))));
+  if constexpr (kGray) {
+    if (!(f0 >= 0.f && f0 <= last)) t.w0 = 0.f;
+    if (!(f1 >= 0.f && f1 <= last)) t.w1 = 0.f;
+    t.i0 = static_cast<int>(fminf(fmaxf(f0, 0.f), last)) * stride;
+    t.i1 = static_cast<int>(fminf(fmaxf(f1, 0.f), last)) * stride;
+  } else {
+    const int i0 = static_cast<int>(f0);
+    t.i0 = i0 * stride;
+    t.i1 = min(i0 + 1, size - 1) * stride;
+  }
   return t;
+}
+
+// The gray mode's border and scale of one value (else the value).
+template <bool kGray>
+__device__ __forceinline__ float finish(float v, const Taps& ty,
+                                        const Taps& tx) {
+  if constexpr (!kGray) return v;
+  const float cov = __fmul_rn(__fadd_rn(ty.w0, ty.w1),
+                              __fadd_rn(tx.w0, tx.w1));
+  v = __fadd_rn(v, __fmul_rn(__fsub_rn(1.f, cov), 128.f));
+  return __fsub_rn(__fmul_rn(v, kInv255), 0.5f);
 }
 
 // One output value: the y-pass at the two columns, then the x-pass.
@@ -160,7 +184,7 @@ struct Band {
 };
 
 // kLevels: each box names its map in `level` (else map 0, unscaled).
-template <bool kLevels>
+template <bool kLevels, bool kGray>
 __device__ __forceinline__ Band begin_band(
     const Maps& maps, int t, int c, const float* boxes,
     const int64_t* frame_idx, const int64_t* level, int oh, int ow,
@@ -206,9 +230,9 @@ __device__ __forceinline__ Band begin_band(
   Taps* xt = smem;
   Taps* yt = smem + ow;
   for (int x = threadIdx.x; x < ow; x += kThreads)
-    xt[x] = taps(b.x, b.z, x, inv_ow, w, c);
+    xt[x] = taps<kGray>(b.x, b.z, x, inv_ow, w, c);
   for (int r = threadIdx.x; r < bd.rows; r += kThreads)
-    yt[r] = taps(b.y, b.w, bd.y0 + r, inv_oh, h, w * c);
+    yt[r] = taps<kGray>(b.y, b.w, bd.y0 + r, inv_oh, h, w * c);
   __syncthreads();
   bd.img = simg;
   bd.xt = xt;
@@ -217,7 +241,7 @@ __device__ __forceinline__ Band begin_band(
 }
 
 // kC: the channel count when it is 1-4, else 0 (read from c).
-template <int kC, bool kLevels>
+template <int kC, bool kLevels, bool kGray>
 __global__ void __launch_bounds__(kThreads) crop_rows(
     const Maps maps, int t, int c, const float* __restrict__ boxes,
     const int64_t* __restrict__ frame_idx, const int64_t* __restrict__ level,
@@ -225,9 +249,9 @@ __global__ void __launch_bounds__(kThreads) crop_rows(
     float* __restrict__ out) {
   extern __shared__ Taps smem_taps[];
   const int cc = kC ? kC : c;
-  const Band bd = begin_band<kLevels>(maps, t, cc, boxes, frame_idx, level,
-                                      oh, ow, band_rows, bands, inv_oh,
-                                      inv_ow, smem_taps);
+  const Band bd = begin_band<kLevels, kGray>(
+      maps, t, cc, boxes, frame_idx, level, oh, ow, band_rows, bands, inv_oh,
+      inv_ow, smem_taps);
   const int lane = threadIdx.x & 31;
   const int row_len = ow * cc;
   for (int r = threadIdx.x >> 5; r < bd.rows; r += kWarps) {
@@ -245,7 +269,9 @@ __global__ void __launch_bounds__(kThreads) crop_rows(
     if (lane < head + tail) {
       const int e = lane < head ? lane : head + body + (lane - head);
       const int x = e / cc;
-      __stcs(orow + e, lerp(r0, r1, ty, bd.xt[x], e - x * cc));
+      const Taps tx = bd.xt[x];
+      __stcs(orow + e, finish<kGray>(lerp(r0, r1, ty, tx, e - x * cc), ty,
+                                     tx));
     }
     for (int e = head + 4 * lane; e < head + body; e += 4 * 32) {
       int x = e / cc;
@@ -253,7 +279,8 @@ __global__ void __launch_bounds__(kThreads) crop_rows(
       float v[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        v[q] = lerp(r0, r1, ty, bd.xt[x], ch);
+        const Taps tx = bd.xt[x];
+        v[q] = finish<kGray>(lerp(r0, r1, ty, tx, ch), ty, tx);
         if (++ch == cc) {
           ch = 0;
           ++x;
@@ -265,16 +292,16 @@ __global__ void __launch_bounds__(kThreads) crop_rows(
   }
 }
 
-template <bool kLevels>
+template <bool kLevels, bool kGray>
 __global__ void __launch_bounds__(kThreads) crop_pixels(
     const Maps maps, int t, int c, const float* __restrict__ boxes,
     const int64_t* __restrict__ frame_idx, const int64_t* __restrict__ level,
     int oh, int ow, int band_rows, int bands, float inv_oh, float inv_ow,
     float* __restrict__ out) {
   extern __shared__ Taps smem_taps[];
-  const Band bd = begin_band<kLevels>(maps, t, c, boxes, frame_idx, level,
-                                      oh, ow, band_rows, bands, inv_oh,
-                                      inv_ow, smem_taps);
+  const Band bd = begin_band<kLevels, kGray>(
+      maps, t, c, boxes, frame_idx, level, oh, ow, band_rows, bands, inv_oh,
+      inv_ow, smem_taps);
   const int c4 = c >> 2;
   int group = 1;  // lanes a pixel: min(32, c4) rounded up to a power of 2
   while (group < c4 && group < 32) group <<= 1;
@@ -295,13 +322,21 @@ __global__ void __launch_bounds__(kThreads) crop_pixels(
     const float4* a11 = reinterpret_cast<const float4*>(bd.img + ty.i1 + tx.i1);
     float4* o = reinterpret_cast<float4*>(
         out + ((static_cast<int64_t>(bd.box) * oh + bd.y0 + r) * ow + x) * c);
-    for (int g = g0; g < c4; g += group)
-      __stcs(o + g, lerp4(__ldg(a00 + g), __ldg(a10 + g), __ldg(a01 + g),
-                          __ldg(a11 + g), ty, tx));
+    for (int g = g0; g < c4; g += group) {
+      float4 r = lerp4(__ldg(a00 + g), __ldg(a10 + g), __ldg(a01 + g),
+                       __ldg(a11 + g), ty, tx);
+      if constexpr (kGray) {
+        r.x = finish<kGray>(r.x, ty, tx);
+        r.y = finish<kGray>(r.y, ty, tx);
+        r.z = finish<kGray>(r.z, ty, tx);
+        r.w = finish<kGray>(r.w, ty, tx);
+      }
+      __stcs(o + g, r);
+    }
   }
 }
 
-template <bool kLevels>
+template <bool kLevels, bool kGray>
 int launch(const Maps& maps, int t, int c, const float* boxes,
            const int64_t* frame_idx, const int64_t* level, int b, int oh,
            int ow, float inv_oh, float inv_ow, int band_rows, int bands,
@@ -322,17 +357,22 @@ int launch(const Maps& maps, int t, int c, const float* boxes,
   maps, t, c, boxes, frame_idx, level, oh, ow, band_rows, bands, inv_oh, \
       inv_ow, out
   if (pixels)
-    crop_pixels<kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+    crop_pixels<kLevels, kGray><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
   else if (c == 1)
-    crop_rows<1, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+    crop_rows<1, kLevels, kGray><<<blocks, kThreads, smem, st>>>(
+        ST_CROP_ARGS);
   else if (c == 2)
-    crop_rows<2, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+    crop_rows<2, kLevels, kGray><<<blocks, kThreads, smem, st>>>(
+        ST_CROP_ARGS);
   else if (c == 3)
-    crop_rows<3, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+    crop_rows<3, kLevels, kGray><<<blocks, kThreads, smem, st>>>(
+        ST_CROP_ARGS);
   else if (c == 4)
-    crop_rows<4, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+    crop_rows<4, kLevels, kGray><<<blocks, kThreads, smem, st>>>(
+        ST_CROP_ARGS);
   else
-    crop_rows<0, kLevels><<<blocks, kThreads, smem, st>>>(ST_CROP_ARGS);
+    crop_rows<0, kLevels, kGray><<<blocks, kThreads, smem, st>>>(
+        ST_CROP_ARGS);
 #undef ST_CROP_ARGS
   return static_cast<int>(cudaGetLastError());
 }
@@ -345,12 +385,13 @@ int launch(const Maps& maps, int t, int c, const float* boxes,
 // models/common.py's crop_geometry: `bands` blocks a box of `band_rows`
 // output rows each (the last may have fewer), crop_pixels where `pixels` is
 // set (c a multiple of 4 above 4, images 16-byte aligned), else crop_rows.
-// Launches on `stream`; returns a cudaError_t (0 = ok).
+// `gray` selects the gray mode (the pose crop; the header). Launches on
+// `stream`; returns a cudaError_t (0 = ok).
 extern "C" int st_crop_resize(const float* images, int t, int h, int w,
                               int c, const float* boxes,
                               const int64_t* frame_idx, int b, int oh,
                               int ow, float inv_oh, float inv_ow,
-                              int band_rows, int bands, int pixels,
+                              int band_rows, int bands, int pixels, int gray,
                               float* out, void* stream) {
   stcrop::Maps maps = {};
   maps.img[0] = images;
@@ -358,9 +399,13 @@ extern "C" int st_crop_resize(const float* images, int t, int h, int w,
   maps.w[0] = w;
   maps.inv_stride[0] = 1.f;
   maps.levels = 1;
-  return stcrop::launch<false>(maps, t, c, boxes, frame_idx, nullptr, b, oh,
-                               ow, inv_oh, inv_ow, band_rows, bands, pixels,
-                               out, stream);
+  if (gray)
+    return stcrop::launch<false, true>(maps, t, c, boxes, frame_idx, nullptr,
+                                       b, oh, ow, inv_oh, inv_ow, band_rows,
+                                       bands, pixels, out, stream);
+  return stcrop::launch<false, false>(maps, t, c, boxes, frame_idx, nullptr,
+                                      b, oh, ow, inv_oh, inv_ow, band_rows,
+                                      bands, pixels, out, stream);
 }
 
 // The crop with a map a box: `levels` maps (host arrays: images[l] on the
@@ -387,7 +432,7 @@ extern "C" int st_crop_resize_levels(const float* const* images,
     maps.inv_stride[l] = inv_stride[l];
   }
   maps.levels = levels;
-  return stcrop::launch<true>(maps, t, c, boxes, frame_idx, level, b, oh, ow,
-                              inv_oh, inv_ow, band_rows, bands, pixels, out,
-                              stream);
+  return stcrop::launch<true, false>(maps, t, c, boxes, frame_idx, level, b,
+                                     oh, ow, inv_oh, inv_ow, band_rows, bands,
+                                     pixels, out, stream);
 }

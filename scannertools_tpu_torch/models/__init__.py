@@ -6,4 +6,4 @@ Pretrained weights are not bundled (no-egress build environment); load them
 as an npz in the JAX package's layout via models/weights.py."""
 
 from . import (common, facenet, faster_rcnn, gender, maskrcnn,  # noqa: F401
-               mtcnn, porting_maps, ssd, weights)
+               mtcnn, porting_maps, pose, ssd, weights)

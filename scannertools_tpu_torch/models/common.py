@@ -26,7 +26,9 @@ tensors take their plain torch versions beside them:
     per box and band of output rows. ``crop_and_resize_plain`` gathers the
     same taps in torch. ``crop_and_resize_levels`` is the same kernel with
     a map a box (Mask R-CNN's RoIAlign over the FPN levels), beside its
-    plain version ``crop_and_resize_levels_plain``.
+    plain version ``crop_and_resize_levels_plain``; ``gray=True`` is its
+    mode for OpenPose's face and hand crops (a gray border outside the
+    frame).
 
 The launch geometry of both kernels (``nms_geometry``, ``crop_geometry``)
 is computed here, so the CPU tests can check it.
@@ -91,12 +93,13 @@ def _skeleton(cls, *init) -> torch.nn.Module:
         return cls(*init).eval()
 
 
-def apply_net(cls, state, *args):
-    """``cls()(*args)`` with the weights of ``state`` (a state_dict of
+def apply_net(cls, state, *args, init=()):
+    """``cls(*init)(*args)`` with the weights of ``state`` (a state_dict of
     tensors on the inputs' device, as the ops' aux trees hold them), in
     full float32."""
     with full_f32():
-        return torch.func.functional_call(_skeleton(cls), dict(state), args)
+        return torch.func.functional_call(_skeleton(cls, *init), dict(state),
+                                          args)
 
 
 def _area(b: torch.Tensor) -> torch.Tensor:
@@ -356,46 +359,62 @@ def _crop_inputs(images, boxes, frame_idx):
 
 
 def _sample_positions(lo: torch.Tensor, hi: torch.Tensor, n_out: int,
-                      size: int) -> torch.Tensor:
+                      size: int, clamp: bool = True) -> torch.Tensor:
     """[B] box sides -> [B, n_out] sample positions, clamped to the crop
-    window and then to the frame, in the JAX package's written order."""
+    window and then (``clamp``) to the frame, in the JAX package's written
+    order."""
     d = hi - lo
     p = torch.arange(n_out, dtype=torch.float32, device=lo.device) + 0.5
     v = div(d[:, None] * p, n_out) - 0.5
     s = lo[:, None] + torch.minimum(torch.clamp_min(v, 0.0),
                                     torch.clamp_min(d - 1.0, 0.0)[:, None])
-    return torch.clamp(s, 0.0, size - 1.0)
+    return torch.clamp(s, 0.0, size - 1.0) if clamp else s
 
 
-def _taps(lo: torch.Tensor, hi: torch.Tensor, n_out: int, size: int):
+def _taps(lo: torch.Tensor, hi: torch.Tensor, n_out: int, size: int,
+          gray: bool = False):
     """-> the two nonzero hat taps of each sample position: (i0, i1 [B,
-    n_out] int64, w0, w1 [B, n_out] float32)."""
-    s = _sample_positions(lo, hi, n_out, size)
+    n_out] int64, w0, w1 [B, n_out] float32). ``gray``: positions not
+    clamped to the frame; a tap outside it weighs 0, its index clamped to
+    the edge."""
+    s = _sample_positions(lo, hi, n_out, size, clamp=not gray)
     f0 = torch.floor(s)
+    f1 = f0 + 1.0
     w0 = torch.clamp_min(1.0 - torch.abs(s - f0), 0.0)
-    w1 = torch.clamp_min(1.0 - torch.abs(s - (f0 + 1.0)), 0.0)
+    w1 = torch.clamp_min(1.0 - torch.abs(s - f1), 0.0)
+    if gray:
+        last = size - 1.0
+        w0 = torch.where((f0 >= 0.0) & (f0 <= last), w0, 0.0)
+        w1 = torch.where((f1 >= 0.0) & (f1 <= last), w1, 0.0)
+        return (torch.clamp(f0, 0.0, last).to(torch.int64),
+                torch.clamp(f1, 0.0, last).to(torch.int64), w0, w1)
     i0 = f0.to(torch.int64)
     return i0, torch.clamp(i0 + 1, max=size - 1), w0, w1
 
 
 def crop_and_resize_plain(images: torch.Tensor, boxes: torch.Tensor,
-                          out_hw, frame_idx=None) -> torch.Tensor:
+                          out_hw, frame_idx=None,
+                          gray: bool = False) -> torch.Tensor:
     """The two-tap gather in plain torch; see ``crop_and_resize``."""
     images, frame_idx = _crop_inputs(images, boxes, frame_idx)
     _check_crop(images, boxes, frame_idx, out_hw, "crop_and_resize_plain")
     oh, ow = out_hw
     _, h, w, _ = images.shape
-    y0, y1, wy0, wy1 = _taps(boxes[:, 1], boxes[:, 3], oh, h)
-    x0, x1, wx0, wx1 = _taps(boxes[:, 0], boxes[:, 2], ow, w)
+    y0, y1, wy0, wy1 = _taps(boxes[:, 1], boxes[:, 3], oh, h, gray)
+    x0, x1, wx0, wx1 = _taps(boxes[:, 0], boxes[:, 2], ow, w, gray)
     f = frame_idx[:, None, None]
 
     def at(rows, cols):  # [B, oh, ow, C]
         return images[f, rows[:, :, None], cols[:, None, :]]
 
-    wy0, wy1 = wy0[:, :, None, None], wy1[:, :, None, None]
-    t0 = wy0 * at(y0, x0) + wy1 * at(y1, x0)  # y-pass at column x0
-    t1 = wy0 * at(y0, x1) + wy1 * at(y1, x1)  # and at x1
-    return wx0[:, None, :, None] * t0 + wx1[:, None, :, None] * t1
+    wy0_, wy1_ = wy0[:, :, None, None], wy1[:, :, None, None]
+    t0 = wy0_ * at(y0, x0) + wy1_ * at(y1, x0)  # y-pass at column x0
+    t1 = wy0_ * at(y0, x1) + wy1_ * at(y1, x1)  # and at x1
+    out = wx0[:, None, :, None] * t0 + wx1[:, None, :, None] * t1
+    if not gray:
+        return out
+    cov = (wy0 + wy1)[:, :, None] * (wx0 + wx1)[:, None, :]
+    return div(out + ((1.0 - cov) * 128.0)[..., None], 255.0) - 0.5
 
 
 def crop_geometry(b: int, oh: int, ow: int, c: int,
@@ -418,7 +437,7 @@ def _crop_lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.st_crop_resize.restype = i
     lib.st_crop_resize.argtypes = [p, i, i, i, i, p, p, i, i, i, f, f, i, i,
-                                   i, p, p]
+                                   i, i, p, p]
     lib.st_crop_resize_levels.restype = i
     lib.st_crop_resize_levels.argtypes = [p, p, p, i, i, i, p, p, p, i, i, i,
                                           f, f, i, i, i, p, p]
@@ -426,7 +445,7 @@ def _crop_lib() -> ctypes.CDLL:
 
 
 def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_hw,
-                    frame_idx=None) -> torch.Tensor:
+                    frame_idx=None, gray: bool = False) -> torch.Tensor:
     """images: [H, W, C] (the JAX signature) or [T, H, W, C] float32;
     boxes: [B, 4] (x1, y1, x2, y2) pixels float32; frame_idx: [B] int64 in
     [0, T), the frame of each box (None for one image) -> [B, oh, ow, C]
@@ -441,13 +460,20 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_hw,
     degenerate box (x2 <= x1) samples its x1 column, as the JAX package's
     hat matrices do.
 
+    ``gray`` is OpenPose's crop (the JAX package's ``_crop_batch_device``,
+    on boxes already rounded to whole pixels): sample positions are not
+    clamped to the frame, a tap outside it weighs 0, the uncovered share of
+    each value is filled with gray, v + (1 - covy * covx) * 128 where cov
+    is an axis's sum of weights, and the result is mapped to [-0.5, 0.5] as
+    v / 255 - 0.5.
+
     For CUDA tensors one launch of the crop kernel serves every box (at
     most CROP_MAX_OW output columns; the index arithmetic inside a frame
     and a crop is 32-bit); CPU tensors take ``crop_and_resize_plain``."""
     images, frame_idx = _crop_inputs(images, boxes, frame_idx)
     _check_crop(images, boxes, frame_idx, out_hw, "crop_and_resize")
     if images.device.type == "cpu":
-        return crop_and_resize_plain(images, boxes, out_hw, frame_idx)
+        return crop_and_resize_plain(images, boxes, out_hw, frame_idx, gray)
     if images.device.type != "cuda":
         raise ValueError(f"crop_and_resize: unsupported device "
                          f"{images.device}")
@@ -471,7 +497,7 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_hw,
         rc = _crop_lib().st_crop_resize(
             images.data_ptr(), t, h, w, c, boxes.data_ptr(),
             frame_idx.data_ptr(), b, oh, ow, recip(oh), recip(ow),
-            geo["band_rows"], geo["bands"], int(geo["pixels"]),
+            geo["band_rows"], geo["bands"], int(geo["pixels"]), int(gray),
             out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"crop_and_resize: CUDA launch failed with error "

@@ -11,3 +11,4 @@ from . import faces  # noqa: F401  (after imgproc: models import it)
 from . import detection_decode  # noqa: F401
 from . import objects  # noqa: F401  (after faces: weights loader)
 from . import nn_generic  # noqa: F401
+from . import pose  # noqa: F401  (after faces: weights loader)

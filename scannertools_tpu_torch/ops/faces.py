@@ -40,6 +40,7 @@ from ..models import faster_rcnn as faster_rcnn_lib
 from ..models import gender as gender_lib
 from ..models import maskrcnn as maskrcnn_lib
 from ..models import mtcnn as mtcnn_lib
+from ..models import pose as pose_lib
 from ..models import ssd as ssd_lib
 from ..models import weights as weights_lib
 from ..models.common import crop_and_resize
@@ -52,10 +53,13 @@ MAX_FACES = mtcnn_lib.MAX_FACES
 
 # name -> the model's module (init_params, from_flax, to_flax), for every
 # op that loads weights (the detection ops of objects.py and nn_generic.py
-# too)
+# and the pose ops too). The face and hand crop nets share OpenPoseCrop
+# but never their weights: each has its own name, so its own cache entry.
 _MODELS = {"mtcnn": mtcnn_lib, "facenet": facenet_lib, "gender": gender_lib,
            "ssd": ssd_lib, "faster_rcnn": faster_rcnn_lib,
-           "maskrcnn": maskrcnn_lib}
+           "maskrcnn": maskrcnn_lib, "openpose": pose_lib,
+           "openpose_face": pose_lib.FACE_NET,
+           "openpose_hand": pose_lib.HAND_NET}
 
 
 def _get_params(model: str, weights_path: Optional[str],

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from scannertools_tpu_torch.models import common as MC
+from scannertools_tpu_torch.models import pose as PP
 
 CSRC = pathlib.Path(MC.__file__).resolve().parent.parent / "kernels" / "csrc"
 
@@ -34,6 +35,8 @@ def _cu_const(source: str, name: str) -> int:
     ("nms.cu", "kMaxWords", lambda: -(-MC.NMS_MAX_K // 64)),
     ("crop_resize.cu", "kMaxOw", lambda: MC.CROP_MAX_OW),
     ("crop_resize.cu", "kMaxLevels", lambda: len(MC.FPN_STRIDES)),
+    ("peaks.cu", "kMaxPeaks", lambda: PP.MAX_PEAKS),
+    ("peaks.cu", "kParts", lambda: PP.N_PARTS),
     ("crop_resize.cu", "kMaxBandRows",
      lambda: max(MC.crop_geometry(1, oh, 8, 3, True)["band_rows"]
                  for oh in range(1, 300))),

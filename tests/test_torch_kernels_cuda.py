@@ -668,3 +668,167 @@ def test_maskrcnn_forward_launches_twice_each(cuda_device):
         want = PM.infer(state, images, "R-50-FPN", 300, 200, 20)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------------------ pose
+
+
+def _pose_heat(case: str, t: int = 2, c: int = 19, h: int = 40,
+               w: int = 56) -> torch.Tensor:
+    """[T, C, H, W] float32 heat maps: plateaus (equal neighbours), peaks on
+    the edges, fewer than 24 peaks (the fill rows), many equal values, and
+    NaN-free random maps (many local maxima)."""
+    rng = np.random.default_rng(["plateau", "edges", "few", "ties",
+                                 "random"].index(case))
+    hm = np.zeros((t, c, h, w), np.float32)
+    if case == "plateau":
+        hm[:, 0, 10:13, 20:24] = 0.7
+        hm[:, 3, 5:7, 5:7] = hm[:, 3, 30, 40:43] = 0.4
+    elif case == "edges":
+        for part in range(18):
+            hm[:, part, 0, part] = 0.5
+            hm[:, part, h - 1, w - 1 - part] = 0.6
+            hm[:, part, part % h, 0] = 0.3
+    elif case == "few":
+        hm[0, 1, 3, 4] = 0.9
+        hm[0, 1, 0, 1] = 0.8
+        hm[1, 2, 0, 0] = 0.2
+        hm[1, 5, 1, 1] = 0.05
+    elif case == "ties":  # more than 24 peaks of one value: index order
+        hm[:, :, 1::3, 1::3] = 0.5
+        hm[:, :, 1::9, 1::9] = 0.75
+    else:
+        hm = rng.normal(0.2, 0.4, (t, c, h, w)).astype(np.float32)
+    return torch.from_numpy(hm)
+
+
+@pytest.mark.parametrize("case", ["plateau", "edges", "few", "ties",
+                                  "random"])
+def test_pose_peaks_kernel_matches_plain(cuda_device, case):
+    from scannertools_tpu_torch.models import pose as PP
+
+    heat = _pose_heat(case)
+    want = PP.find_peaks_plain(heat)
+    before = PP.find_peaks.launches
+    got = PP.find_peaks(heat.to(cuda_device))
+    assert PP.find_peaks.launches == before + 1
+    for g, p in zip(got, want):
+        assert torch.equal(g.cpu(), p)
+
+
+@pytest.mark.parametrize("t,c,h,w", [(1, 18, 7, 5), (3, 57, 33, 29),
+                                     (2, 19, 480, 640), (1, 19, 1, 600)])
+def test_pose_peaks_kernel_shapes(cuda_device, t, c, h, w):
+    """Ragged and small maps (35 pixels), a channel count past the 19 parts
+    (the parts first), the main path's 480x640, a one-row map; smooth
+    random maps (an upsampled coarse grid, as the net's maps are) and maps
+    whose best peaks all fall to one thread (a column in the block's
+    stride)."""
+    from scannertools_tpu_torch.models import pose as PP
+
+    rng = np.random.default_rng(h + w)
+    coarse = torch.from_numpy(rng.normal(0.2, 0.5, (
+        t, c, max(h // 8, 1), max(w // 8, 1))).astype(np.float32))
+    smooth = torch.nn.functional.interpolate(coarse, size=(h, w),
+                                             mode="bilinear").contiguous()
+    one_thread = torch.zeros((t, c, h, w))
+    flat = one_thread.view(t, c, -1)
+    flat[:, :, ::512] = torch.linspace(0.2, 0.9, flat[:, :, ::512].shape[-1])
+    for heat in (smooth, one_thread):
+        want = PP.find_peaks_plain(heat)
+        got = PP.find_peaks(heat.to(cuda_device))
+        for g, p in zip(got, want):
+            assert torch.equal(g.cpu(), p)
+
+
+def test_pose_peaks_kernel_refuses_bad_inputs(cuda_device):
+    from scannertools_tpu_torch.models import pose as PP
+
+    heat = _pose_heat("random").to(cuda_device)
+    before = PP.find_peaks.launches
+    with pytest.raises(ValueError):
+        PP.find_peaks(heat.double())
+    with pytest.raises(ValueError):
+        PP.find_peaks(heat[:, :17].contiguous())
+    with pytest.raises(ValueError):
+        PP.find_peaks(heat.transpose(2, 3))
+    with pytest.raises(ValueError):
+        PP.find_peaks(heat[:, :, :4, :5].contiguous())
+    assert PP.find_peaks.launches == before
+    empty = PP.find_peaks(heat[:0])
+    assert empty[0].shape == (0, 18, 24, 3)
+    assert PP.find_peaks.launches == before
+
+
+def _gray_items(rng, t: int, n: int) -> np.ndarray:
+    """Normalized (frame, x0, y0, x1, y1) rows: inside the frame, across its
+    edges, wholly outside, and narrower than a pixel."""
+    xy = rng.uniform(-0.6, 1.2, (n, 2))
+    wh = rng.uniform(0.0, 0.7, (n, 2))
+    xy[: n // 4] = rng.uniform(0.1, 0.4, (n // 4, 2))
+    xy[n // 4: n // 3] = rng.choice([-1.5, 1.3], (n // 3 - n // 4, 2))
+    wh[::5] = 0.001
+    return np.concatenate([rng.integers(0, t, (n, 1)), xy, xy + wh],
+                          1).astype(np.float32)
+
+
+@pytest.mark.parametrize("c,size", [(3, 368), (3, 37), (1, 20), (256, 9)])
+def test_gray_crop_kernel_matches_plain(cuda_device, c, size):
+    """The crop kernel's gray mode (OpenPose's face and hand crops) on both
+    crop kernels."""
+    from scannertools_tpu_torch.ops import pose as POP
+
+    rng = np.random.default_rng(61 + size + c)
+    frames = torch.from_numpy(rng.uniform(0, 255, (3, 48, 64, c)).astype(
+        np.float32))
+    items = torch.from_numpy(_gray_items(rng, 3, 40))
+    want = POP.crop_batch(frames, items, size)
+    before = MC.crop_and_resize.launches
+    got = POP.crop_batch(frames.to(cuda_device), items.to(cuda_device),
+                         size)
+    assert MC.crop_and_resize.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_openpose_forward_and_decode_launch_the_kernels(cuda_device):
+    """One OpenPoseForward chunk launches pose_peaks once; the decode with
+    compute_face/compute_hands launches the gray crop once a net; both
+    give what their plain versions give."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.ops import pose as POP
+
+    frames = torch.from_numpy(np.random.default_rng(67).uniform(
+        0, 255, (2, 64, 96, 3)).astype(np.float32)).to(cuda_device)
+    state = PP.init_params(0, 2)
+    for k in ("Mconv7_stage2_L1.weight", "Mconv7_stage2_L2.weight"):
+        state[k] = state[k] * 1000.0
+    state = {k: v.to(cuda_device) for k, v in state.items()}
+    before = PP.find_peaks.launches
+    got = POP.openpose_forward(None, state, frames)
+    assert PP.find_peaks.launches == before + 1
+    with mock.patch.object(PP, "find_peaks", PP.find_peaks_plain):
+        want = POP.openpose_forward(None, state, frames)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    kp = np.zeros((18, 3), np.float32)
+    for part, xy in ((0, (48, 14)), (14, (44, 11)), (15, (52, 11)),
+                     (16, (40, 13)), (17, (57, 13)), (3, (30, 40)),
+                     (4, (26, 54)), (6, (66, 40)), (7, (72, 52))):
+        kp[part] = (*xy, 0.9)
+    with mock.patch.object(PP, "group_people",
+                           lambda *a: [(0.9, kp.copy())]):
+        crops = MC.crop_and_resize.launches
+        poses = POP.openpose_decode(None, *got, frame=frames,
+                                    compute_face=True, compute_hands=True,
+                                    crop_net_size=32)
+        assert MC.crop_and_resize.launches == crops + 2
+        with mock.patch.object(POP, "crop_and_resize",
+                               MC.crop_and_resize_plain):
+            plain = POP.openpose_decode(None, *got, frame=frames,
+                                        compute_face=True,
+                                        compute_hands=True,
+                                        crop_net_size=32)
+    assert [p.serialize() for f in poses for p in f] == \
+        [p.serialize() for f in plain for p in f]
