@@ -101,8 +101,12 @@ the CPU; one chunk split by stage.
 Phase 7 drives OpenPose at 640x480. ``pose_peaks``
 (kernels/csrc/peaks.cu) is held to ``find_peaks_plain`` (equal) on the
 seeded body net's maps of an 8-frame chunk (the record, timed), and on
-random, tied, sparse and ragged maps and one whose best peaks all fall to
-one thread. ``OpenPose`` runs over 16 frames of the face phase's video in
+random, tied, sparse and ragged maps, one whose best peaks all fall to
+one column, peaks and plateaus across the kernel's row bands, a constant
+plateau, trained-like maps (15 Gaussian blobs a part) and maps off a
+16-byte boundary; the net's, trained-like and plateau maps are timed
+beside their bounds and the ``max_pool2d``/``topk`` yardstick, with
+the kernel's registers and the clusters resident. ``OpenPose`` runs over 16 frames of the face phase's video in
 chunks of 8 on the port's seeded body (its two output layers scaled,
 POSE_HEAD_SCALES, so that people form), written as npz, twice; its rows
 must equal a run with ``find_peaks`` and the crop patched to their plain
@@ -140,10 +144,12 @@ import time
 
 import numpy as np
 
-from scannertools_tpu_torch.tools.timing import (box_cloud, card,
+from scannertools_tpu_torch.tools.timing import (blob_maps, box_cloud, card,
                                                  grid_sample_crops,
                                                  grid_sample_level_crops,
-                                                 level_boxes, time_ms)
+                                                 level_boxes,
+                                                 peaks_yardstick, time_ms,
+                                                 yardstick_agrees)
 
 N_FRAMES, HEIGHT, WIDTH, FPS = 480, 1080, 1920, 24.0
 CUTS = (120, 240, 360)
@@ -2764,22 +2770,63 @@ def peaks_bound(heat) -> tuple:
     return bound_ms(nbytes, parts.numel() + 8 * above)
 
 
-def check_pose_peaks(state: dict) -> dict:
-    """pose_peaks held to find_peaks_plain (equal) on the seeded net's maps
-    of a POSE_CHUNK chunk at 480x640 (the main path's call, and the
-    record), random maps, maps with ties, a map whose best peaks all fall
-    to one thread, fewer than 24 peaks, and ragged sizes; timed at the
-    main path's call."""
+def pose_net_maps(state: dict = None):
+    """The seeded body net's heat maps of a POSE_CHUNK chunk at 480x640 on
+    the card: find_peaks' input on the main path."""
     import torch
 
     from scannertools_tpu_torch.models import pose as PP
     from scannertools_tpu_torch.utils.numerics import div
 
+    if state is None:
+        state = {k: v.cuda() for k, v in pose_state().items()}
     frames = pose_frames(range(POSE_CHUNK))
     x = (div(frames, 256.0) - 0.5).permute(0, 3, 1, 2).contiguous()
     with torch.no_grad():
         heat, _ = PP.infer_maps(state, x, (FACE_H, FACE_W))
-    heat = heat.contiguous()
+    return heat.contiguous()
+
+
+def band_edge_maps(case: str, t: int, h: int, w: int):
+    """[t, 19, h, w] maps at the edges of pose_peaks' row bands (a band is
+    ceil(h / 8) rows): a peak on a band's last row whose larger neighbour
+    lies on the next band's first row (or the reverse), or a plateau
+    across the edge, each beside 32- and 128-column strip edges."""
+    import torch
+
+    band = -(-h // 8)
+    hm = np.zeros((t, 19, h, w), np.float32)
+    for part in range(18):
+        e = band * (1 + part % 7)
+        if e >= h:
+            continue
+        for x in sorted({3, 31, 32, 127, 128, w - 2} & set(range(1, w - 1))):
+            if case == "plateau":
+                hm[:, part, e - 2:e + 2, x - 1:x + 2] = 0.4
+            elif part % 2:
+                hm[:, part, e - 1, x] = 0.5
+                hm[:, part, e, x + part % 3 - 1] = 0.6
+            else:
+                hm[:, part, e - 1, x] = 0.6
+                hm[:, part, e, x + part % 3 - 1] = 0.5
+    return torch.from_numpy(hm).cuda()
+
+
+def check_pose_peaks(state: dict) -> dict:
+    """pose_peaks held to find_peaks_plain (equal) on the seeded net's maps
+    of a POSE_CHUNK chunk at 480x640 (the main path's call, and the
+    record), random maps, maps with ties, a map whose best peaks all fall
+    to one column, fewer than 24 peaks, ragged sizes, peaks and plateaus
+    across the kernel's band edges, a constant plateau (every pixel a
+    peak), trained-like maps, and maps off a 16-byte boundary (the 4-byte
+    path); timed on the net's, the trained-like and the plateau maps,
+    each beside its bound, the count of pixels above the threshold and
+    the max_pool2d/topk yardstick."""
+    import torch
+
+    from scannertools_tpu_torch.models import pose as PP
+
+    heat = pose_net_maps(state)
     gen = torch.Generator(device="cuda").manual_seed(9)
     cases = {"net": heat,
              "random": torch.randn((2, 19, 97, 131), device="cuda",
@@ -2789,12 +2836,24 @@ def check_pose_peaks(state: dict) -> dict:
                                        device="cuda"),
              "few": torch.zeros((1, 57, 31, 45), device="cuda"),
              "small": torch.rand((3, 19, 5, 7), device="cuda",
-                                 generator=gen)}
+                                 generator=gen),
+             "band_edge": band_edge_maps("edge", 2, FACE_H, FACE_W),
+             "band_plateau": band_edge_maps("plateau", 2, FACE_H, FACE_W),
+             "constant": torch.full((POSE_CHUNK, 19, FACE_H, FACE_W), 0.5,
+                                    device="cuda"),
+             "trained_like": blob_maps(POSE_CHUNK, 19, FACE_H, FACE_W,
+                                       seed=0),
+             "misaligned": torch.randn((3, 19, 61, 83), device="cuda",
+                                       generator=gen)}
     cases["ties"][:, :, 1::3, 1::3] = 0.5
     flat = cases["one_thread"].view(1, 19, -1)
     flat[:, :, ::512] = torch.linspace(0.2, 0.9, flat[:, :, ::512].shape[-1],
                                        device="cuda")
     cases["few"][0, 3, 0, 2] = cases["few"][0, 3, 5, 5] = 0.7
+    store = torch.empty(heat.numel() + 1, device="cuda")
+    cases["net_off_16_bytes"] = store[1:].view(heat.shape)
+    cases["net_off_16_bytes"].copy_(heat)
+    thre = PP._f32(PP.THRE_PEAK)
     for name, hm in cases.items():
         got = PP.find_peaks(hm)
         want = PP.find_peaks_plain(hm)
@@ -2805,18 +2864,36 @@ def check_pose_peaks(state: dict) -> dict:
         if not ok:
             raise AssertionError(f"pose_peaks disagrees with its plain "
                                  f"version on the {name} maps")
-    bound, by = peaks_bound(heat)
-    record = {
-        "ms": time_ms(lambda: PP.find_peaks(heat)),
-        "device_ms": time_ms(lambda: PP.find_peaks(heat), fence=True),
-        "plain_ms": time_ms(lambda: PP.find_peaks_plain(heat), reps=5,
-                            warm=1),
-        "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0}
+    log({"kernel": "pose_peaks", "vec": PP.find_peaks_info(True),
+         "scalar": PP.find_peaks_info(False)})
+    timings = {}
+    for name in ("net", "trained_like", "constant"):
+        hm = cases[name]
+        bound, by = peaks_bound(hm)
+        yardstick = peaks_yardstick(hm, PP.N_PARTS, thre, PP.MAX_PEAKS)
+        peaks, valid = PP.find_peaks(hm)
+        if name != "constant" and not yardstick_agrees(yardstick(), peaks,
+                                                      valid, hm.shape[3]):
+            raise AssertionError(f"the max_pool2d/topk yardstick finds "
+                                 f"other peaks on the {name} maps")
+        timings[name] = {
+            "ms": time_ms(lambda: PP.find_peaks(hm)),
+            "device_ms": time_ms(lambda: PP.find_peaks(hm), fence=True),
+            "bound_ms": bound, "bound_by": by,
+            "above": int((hm[:, :PP.N_PARTS] > thre).sum()),
+            "valid_peaks": int(valid.sum()),
+            "yardstick_ms": time_ms(yardstick, fence=True)}
+    record = {**{k: timings["net"][k] for k in ("ms", "device_ms",
+                                                "bound_ms", "bound_by",
+                                                "yardstick_ms")},
+              "plain_ms": time_ms(lambda: PP.find_peaks_plain(heat),
+                                  reps=5, warm=1),
+              "max_abs_err": 0.0}
     log({"timing": "pose_peaks", "shape": list(heat.shape),
-         "valid_peaks_per_frame": (PP.find_peaks(heat)[1].sum((1, 2))
-                                   .tolist()),
-         "library": "none: no single torch call finds local maxima and "
-                    "keeps top_k's tie order", **record})
+         "maps": timings,
+         "yardstick": "F.max_pool2d(3, 1, 1) -> where -> torch.topk(24): "
+                      "the same peaks, not top_k's tie or fill order",
+         **record})
     return record
 
 
@@ -2969,7 +3046,8 @@ def main() -> int:
                       + mrcnn_launches["crop_and_resize_levels"]
                       + pose_launches["crop_and_resize"]),
          **records["crop_and_resize"]},
-        # no single torch call finds local maxima with top_k's tie order
+        # no single torch call finds local maxima with top_k's tie order;
+        # yardstick_ms: max_pool2d -> where -> topk, the same peaks
         {"name": "pose_peaks", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/peaks.cu",
          "replaces": "scannertools_tpu/models/pose.py:363",

@@ -17,10 +17,13 @@ The JAX package's models/pose.py in torch, on NCHW maps:
     carry the JAX package's parameters across through the same maps.
   * ``find_peaks``: the 3x3 local maxima above THRE_PEAK and the top
     MAX_PEAKS of each part. For CUDA tensors it is the hand-written kernel
-    ``pose_peaks`` (kernels/csrc/peaks.cu), one launch a chunk; CPU tensors
-    take ``find_peaks_plain``, the JAX formula in torch (a -1 pad, eight
-    ``>=`` tests, ``topk_stable``: ``torch.topk`` promises no order among
-    ties), which the kernel equals bit for bit.
+    ``pose_peaks`` (kernels/csrc/peaks.cu: a cluster of 8 blocks a part
+    map, one row band each, 16-byte loads, candidates kept per warp
+    against a running cut-off, merged in block rank 0's shared memory),
+    one launch a chunk; CPU tensors take ``find_peaks_plain``, the JAX
+    formula in torch (a -1 pad, eight ``>=`` tests, ``topk_stable``:
+    ``torch.topk`` promises no order among ties), which the kernel equals
+    bit for bit.
   * ``limb_scores``: the 10-point PAF line integral of every candidate
     limb, batched over the chunk, in plain torch. It gathers only the two
     PAF channels of each limb (the JAX package gathers all 38, then picks
@@ -336,13 +339,31 @@ def find_peaks_plain(heat: torch.Tensor):
     return torch.stack([xs, ys, top], dim=-1), top > 0
 
 
+PEAKS_CLUSTER = 8  # blocks a part map (peaks.cu's kCluster)
+
+
 @functools.cache
 def _peaks_lib() -> ctypes.CDLL:
     lib = _build.load("peaks")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.st_pose_peaks.restype = i
     lib.st_pose_peaks.argtypes = [p, i, i, i, i, p, p, p]
+    lib.st_pose_peaks_info.restype = i
+    lib.st_pose_peaks_info.argtypes = [i, p]
     return lib
+
+
+def find_peaks_info(vec: bool = True) -> dict:
+    """The ``pose_peaks`` kernel's resources on the current card, for its
+    16-byte (``vec``) or 4-byte form: registers a thread, static shared
+    bytes and local (spill) bytes, blocks resident an SM, and clusters
+    resident on the card (``cudaOccupancyMaxActiveClusters``)."""
+    out = (ctypes.c_int * 5)()
+    rc = _peaks_lib().st_pose_peaks_info(int(vec), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"find_peaks_info: CUDA error {rc}")
+    return dict(zip(("registers", "shared_bytes", "local_bytes",
+                     "blocks_per_sm", "clusters"), out))
 
 
 def find_peaks(heat: torch.Tensor):
@@ -358,14 +379,16 @@ def find_peaks(heat: torch.Tensor):
     with score -1.0.
 
     For CUDA tensors one launch of the ``pose_peaks`` kernel serves the
-    chunk; CPU tensors take ``find_peaks_plain``."""
+    chunk: a cluster of PEAKS_CLUSTER blocks a part map, each a band of
+    rows, 16-byte loads where W % 4 == 0 and ``heat`` is 16-byte aligned
+    (4-byte loads otherwise). CPU tensors take ``find_peaks_plain``."""
     _check_heat(heat, "find_peaks")
     if heat.device.type == "cpu":
         return find_peaks_plain(heat)
     if heat.device.type != "cuda":
         raise ValueError(f"find_peaks: unsupported device {heat.device}")
     t, c, h, w = heat.shape
-    if h * w > 2**31 - 1 or t * N_PARTS > 2**31 - 1:
+    if h * w > 2**31 - 1 or t * N_PARTS * PEAKS_CLUSTER > 2**31 - 1:
         raise ValueError(f"find_peaks: heat {tuple(heat.shape)} exceeds the "
                          f"kernel's 32-bit indices")
     peaks = torch.empty((t, N_PARTS, MAX_PEAKS, 3), dtype=torch.float32,

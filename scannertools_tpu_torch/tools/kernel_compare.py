@@ -2,7 +2,7 @@
 checkouts can be compared on one card, in turns.
 
     python3 scannertools_tpu_torch/tools/kernel_compare.py --tree DIR
-        [--kernels hist,nms,crop] [--frames 64] [--height 1080]
+        [--kernels hist,nms,crop,peaks] [--frames 64] [--height 1080]
         [--width 1920] [--reps 20]
 
 Imports ``scannertools_tpu_torch`` from the checkout at ``DIR`` (not from
@@ -37,7 +37,14 @@ same for every checkout. ``--kernels`` picks among:
     ``crop_and_resize_levels`` at Mask R-CNN's calls of an 8-frame chunk:
     the FPN levels P2..P5 of 800x1088 canvases at C = 256, 8000 boxes at
     7x7 and 800 at 14x14, on every level (``library_ms``: four
-    ``F.grid_sample`` calls, one a level).
+    ``F.grid_sample`` calls, one a level);
+  * ``peaks``: ``find_peaks`` at the pose path's call, [8, 19, 480, 640],
+    on trained-like maps (``timing.blob_maps``: 15 Gaussian blobs of 7 px
+    a part, about 3% of the pixels above the threshold) and on a constant
+    0.5 plateau (every pixel a peak), with the count of pixels above the
+    threshold and, as ``library_ms``, the ``max_pool2d``/``topk``
+    yardstick (``timing.peaks_yardstick``: the same peaks, not the same
+    function).
 
 Run it on each checkout in turns (A, B, B, A) on the same card and compare
 those. Prints one JSON line with the checkout, the times and, in the same
@@ -54,9 +61,9 @@ import sys
 import numpy as np
 import torch
 
-from timing import (box_cloud, card, grid_sample_crops,
+from timing import (blob_maps, box_cloud, card, grid_sample_crops,
                     grid_sample_level_crops, hist_frames, level_boxes,
-                    time_ms)
+                    peaks_yardstick, time_ms)
 
 NMS_CASES = (  # name, frames, K, max_out, mode, kept index
     ("cross_scale", 16, 256, 256, "union", False),
@@ -93,7 +100,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     kernels = args.kernels.split(",")
-    if not set(kernels) <= {"hist", "nms", "crop"}:
+    if not set(kernels) <= {"hist", "nms", "crop", "peaks"}:
         raise SystemExit(f"kernel_compare: unknown --kernels {args.kernels}")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -180,6 +187,19 @@ def main(argv=None) -> int:
                     MC._sample_positions, MC.FPN_STRIDES)
                 timed(f"crop.{name}", lambda: MC.crop_and_resize_levels(
                     maps, boxes, level, fi, (size, size)), library=library)
+    if "peaks" in kernels:
+        from scannertools_tpu_torch.models import pose as PP
+
+        thre = PP._f32(PP.THRE_PEAK)
+        for name in ("blobs", "plateau"):
+            heat = blob_maps(8, 19, 480, 640, seed=0) if name == "blobs" \
+                else torch.full((8, 19, 480, 640), 0.5, device="cuda")
+            res[f"peaks.{name}.above"] = int(
+                (heat[:, :PP.N_PARTS] > thre).sum())
+            timed(f"peaks.{name}", lambda: PP.find_peaks(heat),
+                  library=peaks_yardstick(heat, PP.N_PARTS, thre,
+                                          PP.MAX_PEAKS))
+            del heat
     torch.cuda.synchronize()
     res["card"] = card()
     print(json.dumps(res), flush=True)

@@ -68,6 +68,61 @@ def hist_frames(kind: str, fmt: str, t: int, h: int, w: int):
     return x
 
 
+def blob_maps(t: int, c: int, h: int, w: int, seed: int = 0,
+              blobs: int = 15, sigma: float = 7.0, peak: float = 0.9,
+              device="cuda"):
+    """[t, c, h, w] float32 heat maps of a trained net's density: in each
+    channel the largest of ``blobs`` Gaussians of ``sigma`` px and height
+    ``peak`` at seeded whole-pixel centres, so each centre is a peak of
+    exactly ``peak`` (at 480x640, 15 blobs of 7 px put about 3% of the
+    pixels above 0.1)."""
+    rng = np.random.default_rng(seed)
+    cy, cx = (torch.from_numpy(rng.integers(0, n, (t, c, blobs)).astype(
+        np.float32)).to(device) for n in (h, w))
+    ys = torch.arange(h, dtype=torch.float32, device=device)
+    xs = torch.arange(w, dtype=torch.float32, device=device)
+    out = torch.zeros((t, c, h, w), device=device)
+    for b in range(blobs):
+        gy = torch.exp(-(ys - cy[..., b, None]) ** 2 / (2 * sigma ** 2))
+        gx = torch.exp(-(xs - cx[..., b, None]) ** 2 / (2 * sigma ** 2))
+        out = torch.maximum(out, peak * gy[..., :, None] * gx[..., None, :])
+    return out
+
+
+def peaks_yardstick(heat, parts: int, thre: float, k: int):
+    """The library yardstick of find_peaks: ``F.max_pool2d`` (3x3, stride
+    1, pad 1), a ``where``, ``torch.topk`` over each of the first ``parts``
+    maps. ``hm == max_pool2d(hm)`` is "``>=`` every neighbour", so it finds
+    the same peaks, but ``torch.topk`` keeps neither ``top_k``'s order
+    among ties nor its fill slots: not the same function. -> the call,
+    which returns (scores [T, parts, k], flat indices)."""
+    hm = heat[:, :parts]
+
+    def call():
+        is_max = hm == F.max_pool2d(hm, 3, 1, 1)
+        score = torch.where(is_max & (hm > thre), hm, -1.0)
+        return torch.topk(score.flatten(2), k)
+
+    return call
+
+
+def yardstick_agrees(top, peaks, valid, w: int) -> bool:
+    """Whether the yardstick's valid slots (``top``: scores, indices) hold
+    the kernel's peaks: the same scores in every map, and the same indices
+    in every map with fewer than k peaks (with k or more, ``torch.topk``
+    may pick other peaks among those tied with the k-th)."""
+    vals, idx = top
+    got = torch.where(valid, peaks[..., 2], 0.0)
+    if not torch.equal(torch.sort(vals.clamp(min=0), -1)[0],
+                       torch.sort(got, -1)[0]):
+        return False
+    few = valid.sum(-1) < valid.shape[-1]
+    flat = (peaks[..., 1] * w + peaks[..., 0]).long()
+    mine = torch.sort(torch.where(valid, flat, -1), -1)[0]
+    theirs = torch.sort(torch.where(vals > 0, idx, -1), -1)[0]
+    return bool((mine == theirs)[few].all())
+
+
 def box_cloud(rng, t: int, k: int, span: float = 600.0, lo: float = 8.0,
               hi: float = 120.0):
     """[t, k, 4] float32 pixel boxes of lo-hi px around seeded centres in

@@ -37,6 +37,7 @@ def _cu_const(source: str, name: str) -> int:
     ("crop_resize.cu", "kMaxLevels", lambda: len(MC.FPN_STRIDES)),
     ("peaks.cu", "kMaxPeaks", lambda: PP.MAX_PEAKS),
     ("peaks.cu", "kParts", lambda: PP.N_PARTS),
+    ("peaks.cu", "kCluster", lambda: PP.PEAKS_CLUSTER),
     ("crop_resize.cu", "kMaxBandRows",
      lambda: max(MC.crop_geometry(1, oh, 8, 3, True)["band_rows"]
                  for oh in range(1, 300))),

@@ -20,7 +20,12 @@ edge, degenerate, from several frames in one launch, with C = 1, 3, 4 and
 off a 16-byte boundary, and frames that do; the level crop (a map a box)
 over ragged FPN levels, with a level off a 16-byte boundary and a bad level
 that traps; Mask R-CNN's two ``nms`` calls on both paths and its forward's
-launches. Inputs are made from a seed with numpy.
+launches; ``pose_peaks`` (a cluster of 8 row bands a map) on plateaus,
+edges, ties and fill rows, on peaks and plateaus across the bands' edges,
+a constant plateau (every pixel a peak), maps off a 16-byte boundary
+(the 4-byte path), maps of fewer rows than the cluster has blocks, rising
+and falling ramps of peaks that refill the warps' buffers, 64 frames and
+trained-like maps. Inputs are made from a seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -758,6 +763,139 @@ def test_pose_peaks_kernel_refuses_bad_inputs(cuda_device):
     empty = PP.find_peaks(heat[:0])
     assert empty[0].shape == (0, 18, 24, 3)
     assert PP.find_peaks.launches == before
+
+
+def _assert_peaks_equal(heat: torch.Tensor):
+    """find_peaks on the card equals find_peaks_plain (run on the card too:
+    the same torch ops), in one launch; -> the kernel's outputs."""
+    from scannertools_tpu_torch.models import pose as PP
+
+    before = PP.find_peaks.launches
+    got = PP.find_peaks(heat)
+    assert PP.find_peaks.launches == before + 1
+    want = PP.find_peaks_plain(heat)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    return got
+
+
+def _band_maps(case: str, t: int, h: int, w: int) -> np.ndarray:
+    """Maps at the edges of the kernel's row bands (a band is ceil(h / 8)
+    rows): a peak on a band's last row whose larger neighbour lies on the
+    next band's first row (or the reverse), a plateau across the edge,
+    each at columns on both sides of a 128- and a 32-column strip edge."""
+    band = -(-h // 8)
+    hm = np.zeros((t, 19, h, w), np.float32)
+    for part in range(18):
+        e = band * (1 + part % 7)  # the first row of band 1 + part % 7
+        if e >= h:
+            continue
+        for x in sorted({3, 31, 32, 127, 128, w - 2} & set(range(1, w - 1))):
+            if case == "plateau":
+                hm[:, part, e - 2:e + 2, x - 1:x + 2] = 0.4
+            elif part % 2:
+                hm[:, part, e - 1, x] = 0.5
+                hm[:, part, e, x + part % 3 - 1] = 0.6
+            else:
+                hm[:, part, e - 1, x] = 0.6
+                hm[:, part, e, x + part % 3 - 1] = 0.5
+    return hm
+
+
+@pytest.mark.parametrize("case", ["edge", "plateau"])
+@pytest.mark.parametrize("h,w", [(480, 640), (64, 100), (61, 83)])
+def test_pose_peaks_kernel_band_edges(cuda_device, case, h, w):
+    """Peaks and plateaus across the cluster's band edges, on the 16-byte
+    path (480x640, 64x100) and the 4-byte one (61x83)."""
+    heat = torch.from_numpy(_band_maps(case, 2, h, w)).to(cuda_device)
+    _, valid = _assert_peaks_equal(heat)
+    assert valid.any()
+
+
+def test_pose_peaks_kernel_constant_plateau(cuda_device):
+    """Every pixel a peak (0.5 everywhere): slots 0..23 are indices 0..23,
+    and every warp's buffer fills at its first group."""
+    heat = torch.full((2, 19, 480, 640), 0.5, device=cuda_device)
+    peaks, valid = _assert_peaks_equal(heat)
+    idx = torch.arange(24, device=cuda_device, dtype=torch.float32)
+    assert valid.all()
+    assert torch.equal(peaks[..., 0], idx.expand(2, 18, 24))
+    assert (peaks[..., 1] == 0).all() and (peaks[..., 2] == 0.5).all()
+
+
+def test_pose_peaks_kernel_misaligned(cuda_device):
+    """The 4-byte path: W % 4 != 0 with an odd H * W and C = 19 (maps that
+    start off a 16-byte boundary), and a 480x640 chunk whose tensor starts
+    one float past an aligned address."""
+    rng = np.random.default_rng(11)
+    odd = rng.normal(0.2, 0.4, (3, 19, 61, 83)).astype(np.float32)
+    _assert_peaks_equal(torch.from_numpy(odd).to(cuda_device))
+    coarse = torch.from_numpy(rng.normal(0.2, 0.5, (2, 19, 60, 80)).astype(
+        np.float32)).to(cuda_device)
+    maps = torch.nn.functional.interpolate(coarse, size=(480, 640),
+                                           mode="bilinear")
+    store = torch.empty(maps.numel() + 1, device=cuda_device)
+    shifted = store[1:].view(maps.shape)
+    shifted.copy_(maps)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    _, valid = _assert_peaks_equal(shifted)
+    assert valid.any()
+
+
+@pytest.mark.parametrize("h,w", [(7, 5), (3, 600), (2, 12)])
+def test_pose_peaks_kernel_short_maps(cuda_device, h, w):
+    """Fewer rows than blocks in the cluster (empty bands): random maps,
+    many peaks and the fill rows."""
+    rng = np.random.default_rng(h * w)
+    heat = rng.normal(0.2, 0.4, (4, 19, h, w)).astype(np.float32)
+    heat[1] = 0.0
+    heat[2, :, :, :] = -1.0
+    heat[2, :, 0, 1] = 0.3
+    _assert_peaks_equal(torch.from_numpy(heat).to(cuda_device))
+
+
+@pytest.mark.parametrize("direction", ["rising", "falling"])
+def test_pose_peaks_kernel_ramp(cuda_device, direction):
+    """A peak every third pixel, values rising (or falling) along the
+    walk: each warp's buffer fills again and again (rising) or once
+    (falling), and the cut-offs must keep only what cannot win."""
+    n = 480 * 640
+    vals = np.linspace(0.2, 0.9, len(range(0, n, 3)), dtype=np.float32)
+    flat = np.zeros(n, np.float32)
+    flat[::3] = vals if direction == "rising" else vals[::-1]
+    heat = np.broadcast_to(flat.reshape(1, 1, 480, 640), (2, 19, 480, 640))
+    _assert_peaks_equal(torch.from_numpy(heat.copy()).to(cuda_device))
+
+
+def test_pose_peaks_kernel_64_frames(cuda_device):
+    """t = 64: 9,216 blocks in 1,152 clusters, on smooth random maps."""
+    rng = np.random.default_rng(64)
+    coarse = torch.from_numpy(rng.normal(0.2, 0.5, (64, 19, 15, 20)).astype(
+        np.float32)).to(cuda_device)
+    heat = torch.nn.functional.interpolate(coarse, size=(120, 160),
+                                           mode="bilinear").contiguous()
+    _assert_peaks_equal(heat)
+
+
+def test_pose_peaks_kernel_trained_like(cuda_device):
+    """The trained-like density at 480x640: 15 Gaussian blobs of 7 px and
+    height 0.9 a part (about 3% of the pixels above the threshold), so 15
+    tied peaks and 9 fill rows a map."""
+    from scannertools_tpu_torch.tools.timing import blob_maps
+
+    heat = blob_maps(8, 19, 480, 640, seed=0, device=cuda_device)
+    _, valid = _assert_peaks_equal(heat)
+    assert (valid.sum(-1) <= 15).all() and valid.sum() > 8 * 18 * 12
+
+
+def test_pose_peaks_kernel_info(cuda_device):
+    """The kernel's resources: no spills, and clusters of 8 blocks fit."""
+    from scannertools_tpu_torch.models import pose as PP
+
+    for vec in (True, False):
+        info = PP.find_peaks_info(vec)
+        assert info["local_bytes"] == 0
+        assert info["blocks_per_sm"] >= 1 and info["clusters"] >= 1
 
 
 def _gray_items(rng, t: int, n: int) -> np.ndarray:

@@ -5,7 +5,10 @@ type.
 The same inputs, made from a seed with numpy, go through the jitted JAX
 function and the port's plain torch version (on the CPU ``find_peaks`` and
 the crop are their plain versions; test_torch_kernels_cuda.py holds the
-kernels to those on the card).
+kernels to those on the card). A numpy model of the ``pose_peaks``
+kernel's decomposition (its row bands, warp walks, cut-offs, merge and
+fill, with the constants read from peaks.cu) is held to
+``find_peaks_plain`` bit for bit at the kernel's edge cases.
 
 Tolerances, and why:
   * ``find_peaks``: bit for bit, the fill rows of maps with fewer than 24
@@ -25,6 +28,9 @@ Tolerances, and why:
     taps one axis at a time: measured about 1e-6).
   * the Pose type: serialized bytes equal.
 """
+
+import pathlib
+import re
 
 import jax
 import numpy as np
@@ -119,6 +125,224 @@ def test_find_peaks_plain_batches_frames():
         want = [np.asarray(a) for a in _jit_peaks(hm)]
         np.testing.assert_array_equal(peaks[i].numpy(), want[0])
         np.testing.assert_array_equal(valid[i].numpy(), want[1])
+
+
+# ------------------------------------------------------------ the kernel's
+# decomposition, on the CPU
+
+def _peaks_const(name: str) -> int:
+    """``constexpr int <name> = <value>;`` of kernels/csrc/peaks.cu, where
+    the value is an integer or a knob's ``#define`` default."""
+    text = (pathlib.Path(PP.__file__).resolve().parent.parent / "kernels"
+            / "csrc" / "peaks.cu").read_text()
+    found = re.findall(rf"constexpr int {name} = (\w+);", text)
+    assert len(found) == 1, (name, found)
+    if not found[0].isdigit():
+        found = re.findall(rf"#define {found[0]} (\d+)", text)
+        assert len(found) == 1, (name, found)
+    return int(found[0])
+
+
+def _compact(buf, cut, cluster_cut):
+    """A warp's buffer of more than 24 keys -> its top 24 and the raised
+    cut-off (the warp's and the cluster's)."""
+    buf = sorted(buf, reverse=True)[:JP.MAX_PEAKS]
+    cut = max(cut, buf[-1])
+    cluster_cut[0] = max(cluster_cut[0], buf[-1])
+    return buf, cut
+
+
+def _model_chunks(y0, y1, strips, g, warp, warps):
+    """The chunks a warp walks: its share of the band's row-strips
+    (strip-major), each strip's rows [ys, ye) in chunks of g rows from
+    a = ys - 1, a chunk testing rows a - 1 .. a + g - 2 -> [(strip, first
+    tested row, rows [ys, ye))]."""
+    rows = y1 - y0
+    total = strips * rows
+    q, hi = warp * total // warps, (warp + 1) * total // warps
+    while q < hi:
+        s = q // rows
+        end = min(hi, (s + 1) * rows)
+        ys, ye = y0 + q - s * rows, y0 + end - s * rows
+        a = ys - 1
+        while a - 1 < ye:
+            yield s, a - 1, ys, ye
+            a += g
+        q = end
+
+
+def _model_block(keys, y0, y1, vec, warp_order, cluster_cut):
+    """One block's band [y0, y1) of a map's keys [H, W] (0 where no peak) ->
+    its best 24 keys, by the kernel's walk: row-strips split over the
+    warps and walked in chunks, candidates appended a slot (a lane's row
+    and column) at a time above the cut-off, the buffer ranked at
+    capacity, keys below the cluster's cut-off dropped, the block's list
+    concatenated or sorted."""
+    h, w = keys.shape
+    v = 4 if vec else 1
+    g = _peaks_const("kRowsVec" if vec else "kRowsScalar")
+    warps = _peaks_const("kThreads") // 32
+    cap = _peaks_const("kWarpCap")
+    strips = -(-w // (32 * v))
+    lists = [None] * warps
+    for warp in warp_order:
+        buf, cut = [], 0
+        for s, y, ys, ye in _model_chunks(y0, y1, strips, g, warp, warps):
+            # [rows, lanes, v] of the chunk's tested pixels (0 elsewhere)
+            unit = np.zeros((g, 32 * v), np.uint64)
+            lo, hi = max(y, ys), min(y + g, ye)
+            cols = keys[lo:hi, s * 32 * v:(s + 1) * 32 * v]
+            unit[lo - y:hi - y, :cols.shape[1]] = cols
+            cut = max(cut, cluster_cut[0])
+            if not unit.any():
+                continue
+            unit = unit.reshape(g, 32, v)
+            for i in range(g):
+                for k in range(v):
+                    batch = [int(b) for b in unit[i, :, k] if b > cut]
+                    if len(buf) + len(batch) > cap:
+                        buf, cut = _compact(buf, cut, cluster_cut)
+                        batch = [b for b in batch if b > cut]
+                    buf += batch
+                    assert len(buf) <= cap  # the kernel's shared buffer
+        if len(buf) > JP.MAX_PEAKS:
+            buf, cut = _compact(buf, cut, cluster_cut)
+        cut = max(cut, cluster_cut[0])
+        lists[warp] = [b for b in buf if b >= cut]
+    every = [b for buf in lists for b in buf]
+    if len(every) <= JP.MAX_PEAKS:
+        return every
+    return sorted(every, reverse=True)[:JP.MAX_PEAKS]
+
+
+@pytest.mark.parametrize("h,w,vec", [(480, 640, True), (61, 83, False),
+                                     (7, 5, False), (3, 600, True)])
+def test_kernel_walk_tests_each_pixel_once(h, w, vec):
+    """The warps' chunks test every pixel of every band exactly once."""
+    cluster = _peaks_const("kCluster")
+    warps = _peaks_const("kThreads") // 32
+    v = 4 if vec else 1
+    g = _peaks_const("kRowsVec" if vec else "kRowsScalar")
+    seen = np.zeros((h, -(-w // (32 * v))), int)
+    band = -(-h // cluster)
+    for rank in range(cluster):
+        y0 = min(h, rank * band)
+        y1 = min(h, y0 + band)
+        for warp in range(warps):
+            for s, y, ys, ye in _model_chunks(y0, y1, seen.shape[1], g,
+                                              warp, warps):
+                assert y0 <= ys and ye <= y1 and y < ye
+                seen[max(y, ys):min(y + g, ye), s] += 1
+    assert (seen == 1).all()
+
+
+def _model_find_peaks(heat: np.ndarray, vec: bool, warp_order=None):
+    """find_peaks by the kernel's decomposition, in numpy: heat [T, C, H,
+    W] -> (peaks [T, 18, 24, 3], valid [T, 18, 24])."""
+    t, _, h, w = heat.shape
+    cluster = _peaks_const("kCluster")
+    warps = _peaks_const("kThreads") // 32
+    warp_order = range(warps) if warp_order is None else warp_order
+    thre = np.float32(JP.THRE_PEAK)
+    peaks = np.zeros((t, JP.N_PARTS, JP.MAX_PEAKS, 3), np.float32)
+    band = -(-h // cluster)
+    for f in range(t):
+        for part in range(JP.N_PARTS):
+            hm = heat[f, part]
+            pad = np.pad(hm, 1, constant_values=-1.0)
+            peak = hm > thre
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    if dy or dx:
+                        peak &= hm >= pad[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+            flat = np.arange(h * w, dtype=np.uint32).reshape(h, w)
+            keys = (hm.view(np.uint32).astype(np.uint64) << np.uint64(32)) | \
+                (~flat).astype(np.uint64)
+            keys = np.where(peak, keys, np.uint64(0))
+            merged, cluster_cut = [], [0]
+            for rank in range(cluster):
+                y0 = min(h, rank * band)
+                merged += _model_block(keys, y0, min(h, y0 + band), vec,
+                                       warp_order, cluster_cut)
+            top = sorted(merged, reverse=True)[:JP.MAX_PEAKS]
+            idx = [int(~np.uint32(k & 0xffffffff)) for k in top]
+            score = [float(np.uint32(k >> 32).view(np.float32)) for k in top]
+            free = [i for i in range(min(2 * JP.MAX_PEAKS, h * w))
+                    if i not in idx]
+            idx += free[:JP.MAX_PEAKS - len(top)]
+            score += [-1.0] * (JP.MAX_PEAKS - len(top))
+            idx = np.array(idx)
+            peaks[f, part] = np.stack([idx % w, idx // w, score], -1)
+    return peaks, peaks[..., 2] > 0
+
+
+def _kernel_maps(case: str) -> np.ndarray:
+    """[T, C, H, W] maps at the kernel's edges: a band is ceil(H / 8)
+    rows, a strip 128 (16-byte loads) or 32 columns."""
+    rng = np.random.default_rng(["band_edge", "band_plateau", "constant",
+                                 "misaligned", "short", "one_row", "ramp",
+                                 "random", "blobs"].index(case))
+    if case in ("band_edge", "band_plateau"):
+        hm = np.zeros((2, 19, 64, 260), np.float32)  # bands of 8 rows
+        for part in range(JP.N_PARTS):
+            e = 8 * (1 + part % 7)  # the first row of a band
+            for x in (3, 127, 128, 200, 255):
+                if case == "band_plateau":
+                    hm[:, part, e - 2:e + 2, x - 1:x + 2] = 0.4
+                elif part % 2:  # the larger neighbour on the next band
+                    hm[:, part, e - 1, x] = 0.5
+                    hm[:, part, e, x + part % 3 - 1] = 0.6
+                else:
+                    hm[:, part, e - 1, x] = 0.6
+                    hm[:, part, e, x + part % 3 - 1] = 0.5
+        return hm
+    if case == "constant":  # every pixel a peak
+        return np.full((1, 19, 40, 64), 0.5, np.float32)
+    if case == "ramp":  # peaks rising along the walk: the buffers fill
+        n = 48 * 136
+        hm = np.zeros(n, np.float32)
+        hm[::3] = np.linspace(0.2, 0.9, len(hm[::3]), dtype=np.float32)
+        return np.broadcast_to(hm.reshape(1, 1, 48, 136),
+                               (1, 19, 48, 136)).copy()
+    if case == "blobs":
+        from scannertools_tpu_torch.tools.timing import blob_maps
+        return blob_maps(1, 19, 240, 320, seed=3, sigma=3.5,
+                         device="cpu").numpy()
+    shape = {"misaligned": (2, 19, 61, 83), "short": (2, 19, 7, 5),
+             "one_row": (2, 19, 3, 600), "random": (2, 19, 45, 140)}[case]
+    return rng.normal(0.2, 0.4, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("case", ["band_edge", "band_plateau", "constant",
+                                  "misaligned", "short", "one_row", "ramp",
+                                  "random", "blobs"])
+def test_kernel_decomposition_equals_plain(case, vec):
+    """The kernel's bands, warp units, cut-offs, merge and fill, modelled in
+    numpy, equal find_peaks_plain (and so JAX) bit for bit; the 4-byte
+    form where the 16-byte one cannot take the width."""
+    hm = _kernel_maps(case)
+    vec = vec and hm.shape[3] % 4 == 0
+    want = PP.find_peaks_plain(_t(hm))
+    got = _model_find_peaks(hm, vec)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    if case == "constant":  # slots 0..23 are indices 0..23
+        assert (got[0][..., 1] * 64 + got[0][..., 0] ==
+                np.arange(JP.MAX_PEAKS)).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_decomposition_is_order_free(seed):
+    """The warps' cut-offs depend on the order they run in; the result does
+    not (seeded random maps, dense with peaks, warps in seeded orders)."""
+    rng = np.random.default_rng(seed)
+    hm = rng.normal(0.3, 0.3, (1, 19, 50, 96)).astype(np.float32)
+    want = PP.find_peaks_plain(_t(hm))
+    order = rng.permutation(_peaks_const("kThreads") // 32)
+    for vec in (True, False):
+        got = _model_find_peaks(hm, vec, order)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
 
 
 # ------------------------------------------------------------ limbs
