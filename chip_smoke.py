@@ -144,7 +144,8 @@ import time
 
 import numpy as np
 
-from scannertools_tpu_torch.tools.timing import (blob_maps, box_cloud, card,
+from scannertools_tpu_torch.tools.timing import (band_edge_maps, blob_maps,
+                                                 box_cloud, card,
                                                  grid_sample_crops,
                                                  grid_sample_level_crops,
                                                  level_boxes,
@@ -2770,7 +2771,7 @@ def peaks_bound(heat) -> tuple:
     return bound_ms(nbytes, parts.numel() + 8 * above)
 
 
-def pose_net_maps(state: dict = None):
+def pose_net_maps(state: dict):
     """The seeded body net's heat maps of a POSE_CHUNK chunk at 480x640 on
     the card: find_peaks' input on the main path."""
     import torch
@@ -2778,38 +2779,11 @@ def pose_net_maps(state: dict = None):
     from scannertools_tpu_torch.models import pose as PP
     from scannertools_tpu_torch.utils.numerics import div
 
-    if state is None:
-        state = {k: v.cuda() for k, v in pose_state().items()}
     frames = pose_frames(range(POSE_CHUNK))
     x = (div(frames, 256.0) - 0.5).permute(0, 3, 1, 2).contiguous()
     with torch.no_grad():
         heat, _ = PP.infer_maps(state, x, (FACE_H, FACE_W))
     return heat.contiguous()
-
-
-def band_edge_maps(case: str, t: int, h: int, w: int):
-    """[t, 19, h, w] maps at the edges of pose_peaks' row bands (a band is
-    ceil(h / 8) rows): a peak on a band's last row whose larger neighbour
-    lies on the next band's first row (or the reverse), or a plateau
-    across the edge, each beside 32- and 128-column strip edges."""
-    import torch
-
-    band = -(-h // 8)
-    hm = np.zeros((t, 19, h, w), np.float32)
-    for part in range(18):
-        e = band * (1 + part % 7)
-        if e >= h:
-            continue
-        for x in sorted({3, 31, 32, 127, 128, w - 2} & set(range(1, w - 1))):
-            if case == "plateau":
-                hm[:, part, e - 2:e + 2, x - 1:x + 2] = 0.4
-            elif part % 2:
-                hm[:, part, e - 1, x] = 0.5
-                hm[:, part, e, x + part % 3 - 1] = 0.6
-            else:
-                hm[:, part, e - 1, x] = 0.6
-                hm[:, part, e, x + part % 3 - 1] = 0.5
-    return torch.from_numpy(hm).cuda()
 
 
 def check_pose_peaks(state: dict) -> dict:
@@ -2837,8 +2811,10 @@ def check_pose_peaks(state: dict) -> dict:
              "few": torch.zeros((1, 57, 31, 45), device="cuda"),
              "small": torch.rand((3, 19, 5, 7), device="cuda",
                                  generator=gen),
-             "band_edge": band_edge_maps("edge", 2, FACE_H, FACE_W),
-             "band_plateau": band_edge_maps("plateau", 2, FACE_H, FACE_W),
+             "band_edge": torch.from_numpy(band_edge_maps(
+                 "edge", 2, FACE_H, FACE_W)).cuda(),
+             "band_plateau": torch.from_numpy(band_edge_maps(
+                 "plateau", 2, FACE_H, FACE_W)).cuda(),
              "constant": torch.full((POSE_CHUNK, 19, FACE_H, FACE_W), 0.5,
                                     device="cuda"),
              "trained_like": blob_maps(POSE_CHUNK, 19, FACE_H, FACE_W,

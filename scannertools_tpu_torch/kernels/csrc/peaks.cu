@@ -65,9 +65,7 @@
 //    ballots of one warp.
 //
 // The rest of the time: the chunks that run the stencil, and each
-// cluster's slots held until its slowest band and rank 0's merge end
-// (tools/peaks_probe.py times the scan alone and the scan with the
-// stencil).
+// cluster's slots held until its slowest band and rank 0's merge end.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -75,41 +73,27 @@
 
 namespace cg = cooperative_groups;
 
-// Build-time knobs, which tools/peaks_probe.py varies; the defaults are
-// the design. ST_PEAKS_STAGE 1 stops after the scan's loads and threshold
-// test, 2 after the stencil and the warps' buffers (both are ceilings for
-// timing, not the function: they write no output).
-#ifndef ST_PEAKS_ROWS_VEC
-#define ST_PEAKS_ROWS_VEC 4
-#endif
-#ifndef ST_PEAKS_MIN_BLOCKS
-#define ST_PEAKS_MIN_BLOCKS 3
-#endif
-#ifndef ST_PEAKS_STAGE
-#define ST_PEAKS_STAGE 0
-#endif
-
 namespace stpeaks {
 
 constexpr int kCluster = 8;  // blocks a map (the portable cluster size)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsVec = ST_PEAKS_ROWS_VEC;  // rows a chunk, 16-byte loads
+constexpr int kMinBlocks = 3;    // resident an SM: <= 80 registers
+constexpr int kRowsVec = 4;      // rows a chunk, 16-byte loads
 constexpr int kRowsScalar = 8;   // rows a chunk, 4-byte loads
 constexpr int kWarpCap = 64;     // keys a warp's buffer holds
 constexpr int kParts = 18;
 constexpr int kMaxPeaks = 24;
 constexpr int kFill = 2 * kMaxPeaks;  // the fill indices lie in [0, 48)
 constexpr float kThre = 0.1f;  // THRE_PEAK, as float32
-constexpr int kStage = ST_PEAKS_STAGE;
 
 static_assert(kWarpCap == 64, "a warp sorts its buffer two keys a lane");
 static_assert(kCluster * kMaxPeaks <= kThreads,
               "rank 0 ranks the cluster's keys a thread each");
 static_assert(kMaxPeaks <= 32, "a warp sorts its list a key a lane");
 static_assert(kFill <= 64, "the fill takes two ballots");
-static_assert(kRowsVec * 4 <= 32 && kRowsScalar <= 32,
-              "a chunk's pixels fit a 32-bit mask");
+static_assert(kRowsVec * 4 < 32 && kRowsScalar < 32,
+              "a chunk's pixels, and the shift past them, fit a 32-bit mask");
 
 using Key = unsigned long long;  // 0: no peak
 
@@ -392,17 +376,13 @@ __device__ void scan_band(const float* map, int h, int w, int y0, int y1,
 #pragma unroll
       for (int k = 0; k < V; ++k)
         if (i >= i0 && i < i1) best = fmaxf(best, r[i + 1][k]);
-    const bool pass = best >= gate;
-    if (kStage == 1) {
-      n += __any_sync(0xffffffffu, pass);
-    } else if (__any_sync(0xffffffffu, pass)) {
+    if (__any_sync(0xffffffffu, best >= gate)) {
       const uint32_t tested = ((1u << (i1 * V)) - 1) & ~((1u << (i0 * V)) - 1);
       chunk_peaks<V, G>(w, c.a, c.strip * 32 * V + lane * V, gate, tested,
                         r, edge, buf, n, cut, cluster_cut, lane);
     }
     if (!next_chunk<G>(walk, end, c)) break;
   }
-  if (kStage == 1) return;
   if (n > kMaxPeaks) {
     cut = compact(buf, n, cut, cluster_cut, lane);
     n = kMaxPeaks;
@@ -457,7 +437,7 @@ __device__ __forceinline__ int merged_rank(const Key* lists, int stride,
 
 template <int V, int G>
 __global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kThreads, ST_PEAKS_MIN_BLOCKS)
+    __launch_bounds__(kThreads, kMinBlocks)
         pose_peaks(const float* __restrict__ heat, int c, int h, int w,
                    float* __restrict__ peaks, bool* __restrict__ valid) {
   __shared__ Key s_buf[kWarps][kWarpCap];
@@ -488,12 +468,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   int n = 0;
   Key cut = 0;
   scan_band<V, G>(map, h, w, y0, y1, buf, n, cut, cluster_cut, warp, lane);
-  if (kStage != 0) {  // a ceiling: keep the work, write nothing
-    if (n == -c) valid[0] = true;
-    cluster_arrive();
-    cluster_wait();
-    return;
-  }
 
   // The block's best 24, in order: each warp sorts its list, and each
   // key finds its rank among the block's by binary search in the others.

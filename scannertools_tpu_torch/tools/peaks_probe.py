@@ -1,25 +1,19 @@
-"""Find what bounds the ``pose_peaks`` kernel on one CUDA card, by timing
-build-time variants of it at the pose path's shape.
+"""Report the ``pose_peaks`` kernel's resources on one CUDA card, and its
+time on maps of different peak density at the pose path's shape.
 
     python3 -m scannertools_tpu_torch.tools.peaks_probe [--reps 20]
-        [--variants design,scan_only,...]
 
-Builds ``kernels/csrc/peaks.cu`` once per variant (its ``ST_PEAKS_*``
-knobs, all builds started together) and reports each one's registers,
-stack and spills (``-Xptxas -v``), SASS instructions (``cuobjdump``),
-blocks resident an SM and clusters resident on the card. Then it times each with CUDA events (median of
-``--reps`` single launches, the card kept busy while the host prepares
-each one) on [8, 19, 480, 640] maps: trained-like blobs
-(``timing.blob_maps``), smooth random maps (an upsampled coarse grid:
-dense peaks, as the seeded net's) and a constant 0.5 plateau (every pixel
-a peak), and holds every variant that computes the function to
-``find_peaks_plain``. The ceilings: ``scan_only`` (the loads and the
-threshold test alone) and ``no_merge`` (the stencil and the warps'
-buffers too); ``min_blocks_*`` bound the registers for that
-many blocks an SM; ``rows_*`` walk that many rows a chunk. With ``--net``, also the
-seeded body net's maps of ``chip_smoke.py`` (run from the repository's
-root). Beside them, ``torch.sum`` over the same maps: the
-card's own read rate.
+Builds ``kernels/csrc/peaks.cu`` with ``nvcc -Xptxas -v`` and reports
+ptxas's registers, stack and spills for both forms (16- and 4-byte
+loads), then ``st_pose_peaks_info``: registers, shared and local bytes,
+blocks resident an SM and clusters resident on the card. Then it times
+the kernel with CUDA events (median of ``--reps`` single launches, the
+card kept busy while the host prepares each one) on [8, 19, 480, 640]
+maps: trained-like blobs (``timing.blob_maps``), smooth random maps (an
+upsampled coarse grid: dense peaks, as the seeded net's) and a constant
+0.5 plateau (every pixel a peak), each held to ``find_peaks_plain`` and
+logged with its count of pixels above the threshold. Beside them,
+``torch.sum`` over the same bytes: the card's own read rate.
 
 Prints one JSON line per measurement and, last, the card's name and power
 limit from nvidia-smi.
@@ -31,8 +25,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
-import shutil
 import subprocess
 
 import torch
@@ -41,63 +33,23 @@ from ..kernels import build as _build
 from ..models import pose as PP
 from .timing import blob_maps, card, time_ms
 
-VARIANTS = {  # name -> ST_PEAKS_* knobs (the rest at their defaults)
-    "design": {},
-    "scan_only": {"STAGE": 1},
-    "no_merge": {"STAGE": 2},
-    "min_blocks_1": {"MIN_BLOCKS": 1},
-    "min_blocks_4": {"MIN_BLOCKS": 4},
-    "rows_3": {"ROWS_VEC": 3},
-    "rows_5": {"ROWS_VEC": 5},
-    "rows_6": {"ROWS_VEC": 6},
-}
 SRC = os.path.join(_build.CSRC, "peaks.cu")
 
 
-def _build_variants(names):
-    """One nvcc per variant, all at once -> {name: (.so or None where the
-    build failed, ptxas's lines)}."""
+def _compile():
+    """nvcc -Xptxas -v peaks.cu into the build directory -> (.so, ptxas's
+    lines on registers and spills)."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = os.path.join(_build.BUILD_DIR,
-                           f"libpeaks-probe-{name}-{os.getpid()}.so")
-        flags = [f"-DST_PEAKS_{k}={v}" for k, v in VARIANTS[name].items()]
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", *flags,
-               "-o", out, SRC]
-        procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT))
-    built = {}
-    for name, (out, proc) in procs.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        lines = [line.strip() for line in log.splitlines()
+    out = os.path.join(_build.BUILD_DIR, f"libpeaks-probe-{os.getpid()}.so")
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+           SRC]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"peaks_probe: nvcc failed:\n{log}")
+    return out, [line.strip() for line in log.splitlines()
                  if "registers" in line or "spill" in line
-                 or "error" in line]
-        built[name] = (out if proc.returncode == 0 else None, lines)
-    return built
-
-
-def _cuobjdump() -> str:
-    return shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-
-
-def _sass_counts(path: str) -> dict:
-    """SASS instructions of each kernel in the library (``cuobjdump``),
-    by the form's template arguments (``<4, 4>``: 16-byte loads)."""
-    tool = _cuobjdump()
-    if not os.path.isfile(tool):
-        return {}
-    out = subprocess.run([tool, "-sass", path], capture_output=True,
-                         text=True).stdout
-    counts, name = {}, None
-    for line in out.splitlines():
-        m = re.search(r"Function : \S*pose_peaksILi(\d+)ELi(\d+)E", line)
-        if m:
-            name = f"<{m.group(1)}, {m.group(2)}>"
-            counts[name] = 0
-        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            counts[name] += 1
-    return counts
+                 or "Function properties" in line]
 
 
 def _load(path: str) -> ctypes.CDLL:
@@ -105,17 +57,7 @@ def _load(path: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.st_pose_peaks.restype = i
     lib.st_pose_peaks.argtypes = [p, i, i, i, i, p, p, p]
-    lib.st_pose_peaks_info.restype = i
-    lib.st_pose_peaks_info.argtypes = [i, p]
     return lib
-
-
-def _info(lib) -> dict:
-    out = (ctypes.c_int * 5)()
-    if lib.st_pose_peaks_info(1, ctypes.addressof(out)) != 0:
-        raise RuntimeError("st_pose_peaks_info failed")
-    return dict(zip(("registers", "shared_bytes", "local_bytes",
-                     "blocks_per_sm", "clusters"), out))
 
 
 def _call(lib, heat, peaks, valid):
@@ -140,59 +82,29 @@ def maps() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--variants", default=",".join(VARIANTS))
-    ap.add_argument("--net", action="store_true",
-                    help="also time the seeded body net's maps (the pose "
-                         "path's call; chip_smoke.py's, from the working "
-                         "directory)")
-    ap.add_argument("--sass", default=None,
-                    help="directory to write each variant's SASS to")
     args = ap.parse_args(argv)
-    names = args.variants.split(",")
-    if not set(names) <= set(VARIANTS):
-        raise SystemExit(f"peaks_probe: unknown --variants {args.variants}")
     if not torch.cuda.is_available():
         raise SystemExit("peaks_probe: no CUDA device")
-    built = _build_variants(names)
-    inputs = maps()
-    if args.net:
-        import chip_smoke
-
-        inputs["net"] = chip_smoke.pose_net_maps()
+    path, ptxas = _compile()
+    lib = _load(path)
+    print(json.dumps({"ptxas": ptxas, "vec": PP.find_peaks_info(True),
+                      "scalar": PP.find_peaks_info(False)}), flush=True)
     thre = PP._f32(PP.THRE_PEAK)
-    for name, heat in inputs.items():
-        parts = heat[:, :PP.N_PARTS]
+    for name, heat in maps().items():
+        t = heat.shape[0]
+        peaks = torch.empty((t, PP.N_PARTS, PP.MAX_PEAKS, 3), device="cuda")
+        valid = torch.empty((t, PP.N_PARTS, PP.MAX_PEAKS), dtype=torch.bool,
+                            device="cuda")
         words = heat.view(torch.int64)
-        print(json.dumps({
-            "maps": name, "shape": list(heat.shape),
-            "above": int((parts > thre).sum()),
-            "torch_sum_ms": time_ms(lambda: words.sum(), args.reps,
-                                    fence=True)}), flush=True)
-    for name in names:
-        path, ptxas = built[name]
-        if path is None:
-            print(json.dumps({"variant": name, "knobs": VARIANTS[name],
-                              "build_failed": ptxas}), flush=True)
-            continue
-        if args.sass:
-            os.makedirs(args.sass, exist_ok=True)
-            with open(os.path.join(args.sass, f"{name}.sass"), "w") as f:
-                subprocess.run([_cuobjdump(), "-sass", path], stdout=f)
-        lib = _load(path)
-        row = {"variant": name, "knobs": VARIANTS[name], **_info(lib),
-               "ptxas": ptxas, "sass": _sass_counts(path)}
-        for kind, heat in inputs.items():
-            peaks = torch.empty((8, PP.N_PARTS, PP.MAX_PEAKS, 3),
-                                device="cuda")
-            valid = torch.empty((8, PP.N_PARTS, PP.MAX_PEAKS),
-                                dtype=torch.bool, device="cuda")
-            row[f"{kind}.device_ms"] = time_ms(
-                lambda: _call(lib, heat, peaks, valid), args.reps,
-                fence=True)
-            if "STAGE" not in VARIANTS[name]:
-                want = PP.find_peaks_plain(heat)
-                row[f"{kind}.equal"] = torch.equal(peaks, want[0]) and \
-                    torch.equal(valid, want[1])
+        row = {"maps": name, "shape": list(heat.shape),
+               "above": int((heat[:, :PP.N_PARTS] > thre).sum()),
+               "device_ms": time_ms(lambda: _call(lib, heat, peaks, valid),
+                                    args.reps, fence=True),
+               "torch_sum_ms": time_ms(lambda: words.sum(), args.reps,
+                                       fence=True)}
+        want = PP.find_peaks_plain(heat)
+        row["equal"] = torch.equal(peaks, want[0]) and torch.equal(valid,
+                                                                   want[1])
         print(json.dumps(row), flush=True)
     torch.cuda.synchronize()
     print(json.dumps({"card": card()}), flush=True)

@@ -1,5 +1,5 @@
 """Timing and inputs shared by the port's chip scripts (``chip_smoke.py``
-and the tools beside this file).
+and the tools beside this file) and its tests.
 
 It imports nothing of the package, so that ``kernel_compare.py``, which
 imports the package from another checkout, can import it by path.
@@ -87,6 +87,31 @@ def blob_maps(t: int, c: int, h: int, w: int, seed: int = 0,
         gx = torch.exp(-(xs - cx[..., b, None]) ** 2 / (2 * sigma ** 2))
         out = torch.maximum(out, peak * gy[..., :, None] * gx[..., None, :])
     return out
+
+
+def band_edge_maps(case: str, t: int, h: int, w: int, cluster: int = 8):
+    """[t, 19, h, w] float32 numpy maps at the edges of pose_peaks' row
+    bands (a band is ceil(h / cluster) rows): a peak on a band's last row
+    whose larger neighbour lies on the next band's first row (or the
+    reverse) for ``case`` "edge", a plateau across the edge for
+    "plateau", each at columns on both sides of a 32- and a 128-column
+    strip edge."""
+    band = -(-h // cluster)
+    hm = np.zeros((t, 19, h, w), np.float32)
+    for part in range(18):
+        e = band * (1 + part % 7)  # the first row of band 1 + part % 7
+        if e >= h:
+            continue
+        for x in sorted({3, 31, 32, 127, 128, w - 2} & set(range(1, w - 1))):
+            if case == "plateau":
+                hm[:, part, e - 2:e + 2, x - 1:x + 2] = 0.4
+            elif part % 2:
+                hm[:, part, e - 1, x] = 0.5
+                hm[:, part, e, x + part % 3 - 1] = 0.6
+            else:
+                hm[:, part, e - 1, x] = 0.6
+                hm[:, part, e, x + part % 3 - 1] = 0.5
+    return hm
 
 
 def peaks_yardstick(heat, parts: int, thre: float, k: int):

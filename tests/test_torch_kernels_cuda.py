@@ -42,6 +42,7 @@ import torch
 from scannertools_tpu_torch.models import common as MC
 from scannertools_tpu_torch.ops import histogram as H
 from scannertools_tpu_torch.ops import optical_flow as OF
+from scannertools_tpu_torch.tools.timing import band_edge_maps
 from scannertools_tpu_torch.utils.framechunk import FrameChunk
 
 pytestmark = pytest.mark.cuda
@@ -779,35 +780,12 @@ def _assert_peaks_equal(heat: torch.Tensor):
     return got
 
 
-def _band_maps(case: str, t: int, h: int, w: int) -> np.ndarray:
-    """Maps at the edges of the kernel's row bands (a band is ceil(h / 8)
-    rows): a peak on a band's last row whose larger neighbour lies on the
-    next band's first row (or the reverse), a plateau across the edge,
-    each at columns on both sides of a 128- and a 32-column strip edge."""
-    band = -(-h // 8)
-    hm = np.zeros((t, 19, h, w), np.float32)
-    for part in range(18):
-        e = band * (1 + part % 7)  # the first row of band 1 + part % 7
-        if e >= h:
-            continue
-        for x in sorted({3, 31, 32, 127, 128, w - 2} & set(range(1, w - 1))):
-            if case == "plateau":
-                hm[:, part, e - 2:e + 2, x - 1:x + 2] = 0.4
-            elif part % 2:
-                hm[:, part, e - 1, x] = 0.5
-                hm[:, part, e, x + part % 3 - 1] = 0.6
-            else:
-                hm[:, part, e - 1, x] = 0.6
-                hm[:, part, e, x + part % 3 - 1] = 0.5
-    return hm
-
-
 @pytest.mark.parametrize("case", ["edge", "plateau"])
 @pytest.mark.parametrize("h,w", [(480, 640), (64, 100), (61, 83)])
 def test_pose_peaks_kernel_band_edges(cuda_device, case, h, w):
     """Peaks and plateaus across the cluster's band edges, on the 16-byte
     path (480x640, 64x100) and the 4-byte one (61x83)."""
-    heat = torch.from_numpy(_band_maps(case, 2, h, w)).to(cuda_device)
+    heat = torch.from_numpy(band_edge_maps(case, 2, h, w)).to(cuda_device)
     _, valid = _assert_peaks_equal(heat)
     assert valid.any()
 

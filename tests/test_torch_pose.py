@@ -42,6 +42,7 @@ from scannertools_tpu.ops import pose as JOP
 from scannertools_tpu_torch.models import pose as PP
 from scannertools_tpu_torch.models.common import crop_and_resize_plain
 from scannertools_tpu_torch.ops import pose as POP
+from scannertools_tpu_torch.tools.timing import band_edge_maps, blob_maps
 from scannertools_tpu_torch.utils.numerics import resize_hw
 from test_pose import _draw_limb, _oracle_connect_limbs_coco
 
@@ -131,15 +132,11 @@ def test_find_peaks_plain_batches_frames():
 # decomposition, on the CPU
 
 def _peaks_const(name: str) -> int:
-    """``constexpr int <name> = <value>;`` of kernels/csrc/peaks.cu, where
-    the value is an integer or a knob's ``#define`` default."""
+    """``constexpr int <name> = <int>;`` of kernels/csrc/peaks.cu."""
     text = (pathlib.Path(PP.__file__).resolve().parent.parent / "kernels"
             / "csrc" / "peaks.cu").read_text()
-    found = re.findall(rf"constexpr int {name} = (\w+);", text)
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
     assert len(found) == 1, (name, found)
-    if not found[0].isdigit():
-        found = re.findall(rf"#define {found[0]} (\d+)", text)
-        assert len(found) == 1, (name, found)
     return int(found[0])
 
 
@@ -282,20 +279,9 @@ def _kernel_maps(case: str) -> np.ndarray:
     rng = np.random.default_rng(["band_edge", "band_plateau", "constant",
                                  "misaligned", "short", "one_row", "ramp",
                                  "random", "blobs"].index(case))
-    if case in ("band_edge", "band_plateau"):
-        hm = np.zeros((2, 19, 64, 260), np.float32)  # bands of 8 rows
-        for part in range(JP.N_PARTS):
-            e = 8 * (1 + part % 7)  # the first row of a band
-            for x in (3, 127, 128, 200, 255):
-                if case == "band_plateau":
-                    hm[:, part, e - 2:e + 2, x - 1:x + 2] = 0.4
-                elif part % 2:  # the larger neighbour on the next band
-                    hm[:, part, e - 1, x] = 0.5
-                    hm[:, part, e, x + part % 3 - 1] = 0.6
-                else:
-                    hm[:, part, e - 1, x] = 0.6
-                    hm[:, part, e, x + part % 3 - 1] = 0.5
-        return hm
+    if case in ("band_edge", "band_plateau"):  # bands of 8 rows
+        return band_edge_maps(case[5:], 2, 64, 260,
+                              _peaks_const("kCluster"))
     if case == "constant":  # every pixel a peak
         return np.full((1, 19, 40, 64), 0.5, np.float32)
     if case == "ramp":  # peaks rising along the walk: the buffers fill
@@ -305,7 +291,6 @@ def _kernel_maps(case: str) -> np.ndarray:
         return np.broadcast_to(hm.reshape(1, 1, 48, 136),
                                (1, 19, 48, 136)).copy()
     if case == "blobs":
-        from scannertools_tpu_torch.tools.timing import blob_maps
         return blob_maps(1, 19, 240, 320, seed=3, sigma=3.5,
                          device="cpu").numpy()
     shape = {"misaligned": (2, 19, 61, 83), "short": (2, 19, 7, 5),
