@@ -121,7 +121,24 @@ are held the same way. Drawn heat and PAF maps of those people go through
 them; ``OpenPoseDecode`` then runs the face and hand nets on 368x368
 crops of the chunk's frames (the gray crop equal to its plain version and
 timed at the 48 hand crops), and the crop nets and the body net are held
-to the CPU. One chunk is split by stage. Each phase logs its
+to the CPU. One chunk is split by stage.
+
+Phase 8 drives the attribute classifiers and the generic NN ops on the
+face phase's 32 frames in chunks of 16: ``MTCNNDetectFaces`` →
+``PrepareClothingBbox`` → ``DetectClothing`` (StreetStyle at 299x299, 16
+heads; the window scan and the crops on the host with cv2) twice, the
+first run with the npz files read and the second warm; then
+``DetectHairStyle`` and ``DetectFaceLandmarks`` on the same faces,
+``NNInput`` → ``NNForward(model="facenet_detector")`` →
+``FacenetOutput`` with ``InfoFromFrame``, and ``MoEHead`` over FaceNet
+embeddings (``NNForward``) of one chunk, on the port's seeded weights
+written as npz. Each graph's rows must equal those of the same graph with
+``nms`` and ``crop_and_resize`` patched to their plain versions, with
+MTCNN's 4 ``nms`` and 2 crops a chunk; records over their vocabularies,
+finite landmarks and MoE rows, detector boxes in the frame. One chunk is
+split by stage (MTCNN, the window scan, the host crops, the copies, the
+StreetStyle forwards), and StreetStyle, the facenet detector, FaceNet and
+MoE on the card are held to the CPU on one chunk. Each phase logs its
 wall seconds.
 
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
@@ -221,6 +238,16 @@ POSE_HEAD_SCALES = (("Mconv7_stage6_L1.weight", 10000.0),
 POSE_PEOPLE = 3  # drawn people a frame
 POSE_CROP = 368  # the wrapper's face and hand crops
 POSE_CPU_HW = (240, 320)  # card against CPU: the body net on one frame
+# phase 8: the attribute classifiers and the generic NN ops on the face
+# phase's frames and faces (FACE_FRAMES of FACE_W x FACE_H, chunks of
+# FACE_CHUNK): the facenet detector's mean colours (its docstring's), and
+# the experts of MoEHead over FaceNet's 128-d embeddings
+FACENET_DETECTOR_MEAN = (119.3, 110.6, 101.4)
+# the seeded detector puts half its template cells above the reference's
+# 0.5 (78,000 a frame), which FacenetOutput's host NMS (quadratic) takes
+# minutes over; 0.9999 keeps 65-76 candidates a frame
+FACENET_DETECTOR_SCORE = 0.9999
+MOE_DIMS = (8, 128, 256)  # n_experts, d_model, d_hidden
 # card against CPU, float32 nets: largest difference over largest value
 CARD_CPU_RTOL = 1e-4
 CROP_LIBRARY_ATOL = 0.1
@@ -2942,6 +2969,383 @@ def run_pose_pipeline(db: str):
     return main_launches, record, drawn["gray_crop"]
 
 
+# ------------------------------------------------------------ phase 8
+
+
+ATTR_GRAPHS = ("clothing", "hair_landmarks", "facenet_detector", "moe")
+# launches a chunk in each graph: MTCNN's 4 nms and 2 crops where faces
+# are found; the attribute and landmark crops are cut on the host (cv2), so
+# the crop kernel runs no more
+ATTR_LAUNCHES_PER_CHUNK = {
+    "clothing": {"nms": 4, "crop_and_resize": 2},
+    "hair_landmarks": {"nms": 4, "crop_and_resize": 2},
+    "facenet_detector": {"nms": 0, "crop_and_resize": 0},
+    "moe": {"nms": 0, "crop_and_resize": 0},
+}
+
+
+def write_attribute_weights(d: str) -> dict:
+    """The port's seeded StreetStyle head sets and facenet detector beside
+    the face phase's nets, written by the port's save_params in the JAX
+    package's layout -> {model: npz path}."""
+    from scannertools_tpu_torch.models import (facenet_detector,
+                                               streetstyle, weights)
+
+    paths = write_face_weights(d)
+    for name, lib in (("streetstyle_clothing", streetstyle.CLOTHING),
+                      ("streetstyle_hairstyle", streetstyle.HAIRSTYLE),
+                      ("facenet_detector", facenet_detector)):
+        paths[name] = os.path.join(d, f"{name}.npz")
+        weights.save_params(paths[name], lib.to_flax(lib.init_params(0)))
+    return paths
+
+
+def attribute_graph(sc, stream, name: str, weights: dict):
+    """The output columns and stream names of phase-8 graph ``name``."""
+    frame = sc.io.Input([stream])
+    if name == "facenet_detector":
+        pre = sc.ops.NNInput(frame=frame, mean_colors=FACENET_DETECTOR_MEAN,
+                             pad_mod=8)
+        maps = sc.ops.NNForward(input=pre, model="facenet_detector",
+                                weights_path=weights["facenet_detector"])
+        info = sc.ops.InfoFromFrame(frames=frame)
+        return [sc.ops.FacenetOutput(
+            scores=maps, frame_info=info,
+            score_threshold=FACENET_DETECTOR_SCORE)], ["fd_faces"]
+    if name == "moe":  # FaceNet embeddings of one chunk's frames, routed
+        rows = sc.streams.Range(frame, [(0, FACE_CHUNK)])
+        pre = sc.ops.NNInput(frame=rows, input_width=160, input_height=160)
+        emb = sc.ops.NNForward(input=pre,
+                               model="facenet_inception_resnet_v1",
+                               weights_path=weights["facenet"])
+        e, f, h = MOE_DIMS
+        return [sc.ops.MoEHead(input=emb, n_experts=e, d_model=f,
+                               d_hidden=h, capacity_batch=FACE_CHUNK)], \
+            ["moe"]
+    faces = sc.ops.MTCNNDetectFaces(frame=frame,
+                                    weights_path=weights["mtcnn"],
+                                    thresholds=FACE_THRESHOLDS)
+    if name == "clothing":
+        windows = sc.ops.PrepareClothingBbox(frame=frame, bboxes=faces)
+        return [faces, windows, sc.ops.DetectClothing(
+            frame=frame, bboxes=windows, adjust_bboxes=False,
+            weights_path=weights["streetstyle_clothing"])], \
+            ["attr_faces", "windows", "clothing"]
+    return [sc.ops.DetectHairStyle(
+                frame=frame, bboxes=faces,
+                weights_path=weights["streetstyle_hairstyle"]),
+            sc.ops.DetectFaceLandmarks(frame=frame, bboxes=faces,
+                                       weights_path=weights["mtcnn"])], \
+        ["hair", "landmarks"]
+
+
+def run_attribute_graphs(db: str, weights: dict, runs: int = 1):
+    """The phase-8 graphs in turn through Client.run on the card, the
+    clothing graph ``runs`` times in a row (the first run reads its npz
+    files, a later one is warm), the others once -> ({graph: [loaded rows
+    of each output]}, {graph: [launches of each run]}, {graph: result})."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.models import common as MC
+
+    stream_cls = synthetic_stream_class(
+        FACE_FRAMES, FACE_H, FACE_W,
+        lambda: FaceDecoder(FACE_FRAMES, FACE_H, FACE_W))
+    sc = st.Client(db_path=db)
+    video = stream_cls(sc, "attr_video")
+    rows, launches, results = {}, {}, {}
+    for name in ATTR_GRAPHS:
+        cols, names = attribute_graph(sc, video, name, weights)
+        outs = [st.NamedStream(sc, n) for n in names]
+        perf = st.PerfParams.manual(work_packet_size=FACE_CHUNK,
+                                    ingest="rgb")
+        launches[name], per_run = [], []
+        frames = FACE_CHUNK if name == "moe" else FACE_FRAMES
+        for _ in range(runs if name == "clothing" else 1):
+            before = sc.profiler.totals()
+            MC.nms.launches = MC.crop_and_resize.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc.run(sc.io.Output(cols, [tuple(outs)]), perf,
+                   cache_mode=st.CacheMode.Overwrite)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[name].append(
+                {"nms": MC.nms.launches,
+                 "crop_and_resize": MC.crop_and_resize.launches})
+            per_run.append({
+                "seconds": seconds, "frames_per_s": frames / seconds,
+                "totals_s": {k: v - before.get(k, 0.0)
+                             for k, v in sc.profiler.totals().items()}})
+        if name == "clothing":
+            per_run[0]["label"] = "cold: npz read, cuDNN plans"
+            for r in per_run[1:]:
+                r["label"] = "warm"
+        rows[name] = [list(o.load()) for o in outs]
+        results[name] = {"run": "attribute_pipeline", "graph": name,
+                         "frames": frames, "height": FACE_H,
+                         "width": FACE_W, "launches": launches[name],
+                         "runs": per_run}
+    return rows, launches, results
+
+
+def plain_attribute_graphs(db: str, weights: dict):
+    """The same graphs on the card with nms and crop_and_resize replaced by
+    their plain versions -> {graph: rows}."""
+    from unittest import mock
+
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import mtcnn as PM
+
+    with mock.patch.object(PM, "nms", MC.nms_plain), \
+            mock.patch.object(PM, "crop_and_resize",
+                              MC.crop_and_resize_plain):
+        rows, launches, _ = run_attribute_graphs(db, weights)
+    if any(n for runs in launches.values() for lc in runs
+           for n in lc.values()):
+        raise AssertionError(f"the plain attribute graphs launched "
+                             f"kernels: {launches}")
+    return rows
+
+
+def _attribute_rows_equal(got, want) -> bool:
+    """Records' predictions, arrays and box lists equal."""
+    def same(a, b):
+        if hasattr(a, "predictions"):
+            return type(a) is type(b) and np.array_equal(a.predictions,
+                                                         b.predictions)
+        if isinstance(a, np.ndarray):
+            return a.shape == np.shape(b) and np.array_equal(a, b)
+        if isinstance(a, list):
+            return len(a) == len(b) and all(same(x, y)
+                                            for x, y in zip(a, b))
+        return a == b
+    return same(got, want)
+
+
+def attribute_checks(rows) -> dict:
+    """Every face has its window, clothing and hair records over their
+    vocabularies and finite landmarks; the facenet detector's boxes lie in
+    the frame; the MoE rows are finite -> counts."""
+    from scannertools_tpu_torch.models import streetstyle
+
+    faces, windows, clothing = rows["clothing"]
+    hair, landmarks = rows["hair_landmarks"]
+    counts = [len(f) for f in faces]
+    with_faces = sum(1 for n in counts if n)
+    if len(faces) != FACE_FRAMES or with_faces <= FACE_FRAMES // 2:
+        raise AssertionError(f"faces in {with_faces} of {len(faces)} "
+                             "frames")
+    for name, got in (("windows", windows), ("clothing", clothing),
+                      ("hair", hair), ("landmarks", landmarks)):
+        if [len(x) for x in got] != counts:
+            raise AssertionError(f"{name} do not match the faces")
+    for recs, attrs in ((clothing, streetstyle.CLOTHING_ATTRIBUTES),
+                        (hair, streetstyle.HAIRSTYLE_ATTRIBUTES)):
+        sizes = np.array([len(v) for _, v in attrs])
+        for r in (r for f in recs for r in f):
+            p = r.predictions
+            if p.shape != sizes.shape or (p < 0).any() or \
+                    (p >= sizes).any():
+                raise AssertionError(f"a prediction out of its vocabulary: "
+                                     f"{p}")
+    if not all(l.shape == (5, 2) and np.isfinite(l).all()
+               for f in landmarks for l in f):
+        raise AssertionError("landmarks not finite [5, 2]")
+    fd = rows["facenet_detector"][0]
+    for f in fd:
+        for b in f:
+            if not (0 <= b.x1 < b.x2 <= FACE_W and 0 <= b.y1 < b.y2
+                    <= FACE_H):
+                raise AssertionError(f"a facenet detector box off the "
+                                     f"frame: {b}")
+    moe = np.stack(rows["moe"][0])
+    if moe.shape != (FACE_CHUNK, MOE_DIMS[1]) or not np.isfinite(moe).all():
+        raise AssertionError(f"MoE rows {moe.shape} not finite")
+    return {"faces_per_frame": counts, "frames_with_faces": with_faces,
+            "facenet_detector_boxes_per_frame": [len(f) for f in fd],
+            "moe_rows_dropped": int((~moe.any(axis=1)).sum()),
+            "clothing_values_seen": len({tuple(r.predictions) for f in
+                                         clothing for r in f})}
+
+
+def _chunk_frames():
+    """The first FACE_CHUNK frames of the face phase's video (uint8)."""
+    return FaceDecoder(FACE_FRAMES, FACE_H, FACE_W).read_frames(
+        range(FACE_CHUNK))
+
+
+def attribute_stage_ms(weights: dict) -> dict:
+    """One FACE_CHUNK-frame chunk through the clothing path and the hair
+    and landmark nets on the card, each stage timed -> {stage: ms}, the
+    faces and crops of the chunk, and the crops kept for the card against
+    the CPU. Device stages by CUDA events on the compute stream; host
+    stages (the window scan, the cv2 crops) by the host clock; the copies
+    by CUDA events around a synchronous copy (pageable host memory)."""
+    import torch
+
+    from scannertools_tpu_torch.models import mtcnn as mtcnn_lib
+    from scannertools_tpu_torch.models import streetstyle
+    from scannertools_tpu_torch.models.common import apply_net
+    from scannertools_tpu_torch.ops import clothing as PC
+    from scannertools_tpu_torch.ops import faces as PFO
+
+    dev = torch.device("cuda")
+    host = _chunk_frames()
+    mt = PFO._device_state("mtcnn", weights["mtcnn"], dev)
+    states = {m: PFO._device_state(m, weights[m], dev)
+              for m in ("streetstyle_clothing", "streetstyle_hairstyle")}
+
+    def events(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def chunk():
+        out = {}
+        frames, out["upload_frames"] = events(
+            lambda: torch.from_numpy(host).to(dev))
+        (nb, sc_, v), out["mtcnn_forward"] = events(
+            lambda: PFO.mtcnn_forward(None, mt, frames,
+                                      thresholds=FACE_THRESHOLDS))
+        faces, out["mtcnn_decode"] = host_ms(lambda: PFO.mtcnn_decode(
+            None, nb.cpu().numpy(), sc_.cpu().numpy(), v.cpu().numpy()))
+        windows, out["window_scan"] = host_ms(
+            lambda: PC.prepare_clothing_bbox(None, host, faces))
+        f32 = PFO._to_f32_frames(host)
+        crops = {}
+        for tag, boxes, fn in (
+                ("clothing", windows, PC.clothing_crop),
+                ("hair", faces, PC._hair_crop),
+                ("landmarks", faces,
+                 lambda f, b: PFO._crop_resize_host(f, b, 48))):
+            (crops[tag], _, _), out[f"host_crops_{tag}"] = host_ms(
+                lambda: PFO._host_crops(f32, boxes, fn))
+        for tag, model in (("clothing", "streetstyle_clothing"),
+                           ("hair", "streetstyle_hairstyle")):
+            x, out[f"upload_crops_{tag}"] = events(
+                lambda: torch.from_numpy(crops[tag]).to(dev))
+            pred, out[f"streetstyle_{tag}"] = events(
+                lambda: streetstyle._predict_multihead(
+                    states[model], x, streetstyle.CLOTHING_ATTRIBUTES
+                    if tag == "clothing"
+                    else streetstyle.HAIRSTYLE_ATTRIBUTES))
+            _, out[f"download_{tag}"] = events(lambda: pred.cpu())
+        lx, out["upload_crops_landmarks"] = events(
+            lambda: torch.from_numpy(
+                (crops["landmarks"] - 127.5) * 0.0078125).to(dev))
+        _, out["onet_landmarks"] = events(
+            lambda: apply_net(mtcnn_lib.ONet, mt["onet"], lx)[2].cpu())
+        return out, faces, crops
+
+    chunk()  # warm: cuDNN plans, index maps
+    t0 = time.perf_counter()
+    stages, faces, crops = chunk()
+    stages["chunk_wall"] = (time.perf_counter() - t0) * 1e3
+    stages["frames"] = FACE_CHUNK
+    stages["faces"] = sum(len(f) for f in faces)
+    stages["crops"] = {k: int(v.shape[0]) for k, v in crops.items()}
+    return stages, crops
+
+
+def attribute_card_vs_cpu(weights: dict, crops: dict) -> dict:
+    """One chunk on the card and on the CPU with the same weights: the
+    StreetStyle logits of the chunk's clothing and hair crops, the facenet
+    detector's maps of its NNInput frames, and MoEHead over FaceNet
+    embeddings of its frames (routing equal, then values) -> the
+    differences; each within CARD_CPU_RTOL of the largest value."""
+    import torch
+
+    from scannertools_tpu_torch.models import facenet_detector, streetstyle
+    from scannertools_tpu_torch.ops import faces as PFO
+    from scannertools_tpu_torch.ops import nn_generic as PN
+    from scannertools_tpu_torch.parallel import expert
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    frames = torch.from_numpy(_chunk_frames()).to(torch.float32)
+    out = {}
+
+    def held(name, fn):
+        a = fn(cpu)
+        b = fn(dev)
+        pairs = list(zip(a, b)) if isinstance(a, (list, tuple)) \
+            else [(a, b)]
+        err = max(float((y.cpu() - x).abs().max()) for x, y in pairs)
+        scale = max(float(x.abs().max()) for x, _ in pairs)
+        out[name] = {"max_abs_diff": err, "max_abs": scale}
+        if not err <= CARD_CPU_RTOL * scale:
+            raise AssertionError(f"{name}: card and CPU differ by {err} "
+                                 f"(largest value {scale})")
+        return a, b
+
+    for tag, model, attrs in (
+            ("clothing", "streetstyle_clothing",
+             streetstyle.CLOTHING_ATTRIBUTES),
+            ("hair", "streetstyle_hairstyle",
+             streetstyle.HAIRSTYLE_ATTRIBUTES)):
+        x = torch.from_numpy(crops[tag])
+        held(f"streetstyle_{tag}", lambda d: streetstyle.forward(
+            PFO._device_state(model, weights[model], d), x.to(d),
+            attrs)[0])
+    pre = PN.nn_input(None, frames, mean_colors=FACENET_DETECTOR_MEAN,
+                      pad_mod=8)
+    held("facenet_detector", lambda d: facenet_detector.apply(
+        PFO._device_state("facenet_detector", weights["facenet_detector"],
+                          d), pre.to(d)))
+    x160 = PN.nn_input(None, frames, input_width=160, input_height=160)
+    emb, _ = held("facenet_embeddings", lambda d: PN.nn_forward(
+        None, PFO._device_state("facenet", weights["facenet"], d),
+        x160.to(d), model="facenet_inception_resnet_v1"))
+    params = expert.init_moe_params(0, *MOE_DIMS)
+    route = [torch.argmax(emb.to(d) @ params["router"].to(d), -1).cpu()
+             for d in (cpu, dev)]
+    if not torch.equal(*route):
+        raise AssertionError("MoE routing differs between card and CPU")
+    held("moe", lambda d: expert.moe_reference(
+        {k: v.to(d) for k, v in params.items()}, emb.to(d),
+        capacity=expert.capacity_for(FACE_CHUNK, MOE_DIMS[0], 2.0)))
+    return out
+
+
+def run_attribute_pipeline(db: str):
+    """Phase 8 -> {kernel: launches of the clothing graph's first run};
+    every check raises."""
+    weights = write_attribute_weights(db)
+    rows, launches, results = run_attribute_graphs(
+        os.path.join(db, "attributes"), weights, runs=2)
+    plain = plain_attribute_graphs(os.path.join(db, "attributes_plain"),
+                                   weights)
+    chunks = -(-FACE_FRAMES // FACE_CHUNK)
+    for name in ATTR_GRAPHS:
+        n = 1 if name == "moe" else chunks
+        want = {k: v * n for k, v in ATTR_LAUNCHES_PER_CHUNK[name].items()}
+        results[name]["rows_equal_plain"] = _attribute_rows_equal(
+            rows[name], plain[name])
+        log(results[name])
+        if any(lc != want for lc in launches[name]):
+            raise AssertionError(f"{name}: launches {launches[name]}, want "
+                                 f"{want} each run")
+        if not results[name]["rows_equal_plain"]:
+            raise AssertionError(f"{name}: rows differ from the plain "
+                                 "kernels' run")
+    log({"attribute_checks": attribute_checks(rows)})
+    stages, crops = attribute_stage_ms(weights)
+    log({"attribute_stages_ms": stages,
+         "shape": [FACE_CHUNK, FACE_H, FACE_W]})
+    log({"attribute_card_vs_cpu": attribute_card_vs_cpu(weights, crops)})
+    return launches["clothing"][0]
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2979,13 +3383,15 @@ def main() -> int:
         mrcnn_launches = phase("6: Mask R-CNN", run_maskrcnn_pipeline, db)
         pose_launches, records["pose_peaks"], gray = phase(
             "7: pose", run_pose_pipeline, db)
+        attr_launches = phase("8: attributes", run_attribute_pipeline, db)
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
     log({"launches_by_path": {"faces": face_launches,
                               "detection": det_launches,
                               "maskrcnn": mrcnn_launches,
-                              "pose": pose_launches}})
+                              "pose": pose_launches,
+                              "attributes": attr_launches}})
     log({"timing": "crop_and_resize", "call": "pose_gray_hands", **gray})
     kernels = [
         {"name": "hist_rgb", "route": "cuda",
@@ -3008,7 +3414,7 @@ def main() -> int:
          "source": "scannertools_tpu_torch/kernels/csrc/nms.cu",
          "replaces": "scannertools_tpu/models/common.py:33",
          "launches": (face_launches["nms"] + det_launches["nms"]
-                      + mrcnn_launches["nms"]),
+                      + mrcnn_launches["nms"] + attr_launches["nms"]),
          **records["nms"],
          "library_ms": None},
         {"name": "crop_and_resize", "route": "cuda",
@@ -3020,7 +3426,8 @@ def main() -> int:
                       + det_launches["crop_and_resize"]
                       + mrcnn_launches["crop_and_resize"]
                       + mrcnn_launches["crop_and_resize_levels"]
-                      + pose_launches["crop_and_resize"]),
+                      + pose_launches["crop_and_resize"]
+                      + attr_launches["crop_and_resize"]),
          **records["crop_and_resize"]},
         # no single torch call finds local maxima with top_k's tie order;
         # yardstick_ms: max_pool2d -> where -> topk, the same peaks

@@ -5,5 +5,6 @@ JAX package's architectures and the torch names of models/porting_maps.py
 Pretrained weights are not bundled (no-egress build environment); load them
 as an npz in the JAX package's layout via models/weights.py."""
 
-from . import (common, facenet, faster_rcnn, gender, maskrcnn,  # noqa: F401
-               mtcnn, porting_maps, pose, ssd, weights)
+from . import (common, facenet, facenet_detector,  # noqa: F401
+               faster_rcnn, gender, maskrcnn, mtcnn, porting_maps, pose,
+               ssd, streetstyle, weights)

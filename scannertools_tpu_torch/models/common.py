@@ -75,6 +75,28 @@ def full_f32():
         yield
 
 
+def same_pad(x: torch.Tensor, k: int, stride: int,
+             value: float = 0.0) -> torch.Tensor:
+    """flax's ``padding="SAME"`` of an NCHW input for a k x k window (lax's
+    rule): out = ceil(n / stride), the total padding p = max((out - 1) *
+    stride + k - n, 0) split (p // 2, p - p // 2), the extra one after. At
+    stride 2 on an even side that is (0, 1), not torch's symmetric (1,
+    1)."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):  # F.pad takes the last axis first
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return torch.nn.functional.pad(x, pads, value=value) if any(pads) \
+        else x
+
+
+def max_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """flax ``max_pool(x, (k, k), (s, s), padding="SAME")`` on NCHW: padded
+    with -inf by ``same_pad``, then pooled VALID."""
+    return torch.nn.functional.max_pool2d(
+        same_pad(x, k, s, float("-inf")), k, s)
+
+
 def batch_norm(bn: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Eval-mode BatchNorm over dim 1 on its running statistics, in flax's
     order of operations: ``(x - mean) * (rsqrt(var + eps) * scale) +

@@ -24,8 +24,8 @@ float32 (``common.full_f32``). Where torch differs from flax:
 
   * flax ``max_pool(..., padding="SAME")`` pads with -inf by lax's rule,
     (0, 1) at even sizes for 2x2/s2 and 3x3/s2 and (1, 1) for 3x3/s2 at odd
-    sizes; ``F.max_pool2d``'s padding is symmetric, so ``_max_pool_same``
-    pads explicitly and pools VALID;
+    sizes; ``F.max_pool2d``'s padding is symmetric, so
+    ``common.max_pool_same`` pads explicitly and pools VALID;
   * flax flattens NHWC before ``Dense``; these nets flatten NCHW, and the
     converter permutes the first dense kernel (kind ``linear_conv``,
     models/weights.py);
@@ -45,7 +45,8 @@ from torch import nn
 from ..utils.numerics import div, resize_hw
 from . import porting_maps
 from . import weights as weights_lib
-from .common import apply_net, crop_and_resize, nms, topk_boxes, topk_stable
+from .common import (apply_net, crop_and_resize, max_pool_same, nms,
+                     topk_boxes, topk_stable)
 
 # cascade capacities (padded sizes)
 MAX_CELLS_PER_SCALE = 128
@@ -72,17 +73,6 @@ class _PReLU(nn.Module):
         return torch.where(x > 0, x, alpha * x)
 
 
-def _max_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """flax ``max_pool(x, (k, k), (s, s), padding="SAME")`` on NCHW: lax's
-    SAME pads (lo, hi) = (p // 2, p - p // 2), p = max((ceil(n / s) - 1) * s
-    + k - n, 0), with -inf."""
-    pads = []
-    for n in (x.shape[3], x.shape[2]):  # F.pad order: last dim first
-        p = max((-(-n // s) - 1) * s + k - n, 0)
-        pads += [p // 2, p - p // 2]
-    return F.max_pool2d(F.pad(x, pads, value=float("-inf")), k, s)
-
-
 def _softmax1(x: torch.Tensor) -> torch.Tensor:
     """The second class of jax.nn.softmax over dim 1: exp(x - max) / sum."""
     e = torch.exp(x - x.amax(dim=1, keepdim=True))
@@ -106,7 +96,7 @@ class PNet(nn.Module):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
-        x = _max_pool_same(self.prelu1(self.conv1(x)), 2, 2)
+        x = max_pool_same(self.prelu1(self.conv1(x)), 2, 2)
         x = self.prelu2(self.conv2(x))
         x = self.prelu3(self.conv3(x))
         return (_softmax1(self.conv4_1(x)),
@@ -131,7 +121,7 @@ class RNet(nn.Module):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
-        x = _max_pool_same(self.prelu1(self.conv1(x)), 3, 2)
+        x = max_pool_same(self.prelu1(self.conv1(x)), 3, 2)
         x = F.max_pool2d(self.prelu2(self.conv2(x)), 3, 2)
         x = self.prelu3(self.conv3(x))
         x = self.prelu4(self.dense4(x.reshape(x.shape[0], -1)))  # CHW
@@ -159,9 +149,9 @@ class ONet(nn.Module):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
-        x = _max_pool_same(self.prelu1(self.conv1(x)), 3, 2)
+        x = max_pool_same(self.prelu1(self.conv1(x)), 3, 2)
         x = F.max_pool2d(self.prelu2(self.conv2(x)), 3, 2)
-        x = _max_pool_same(self.prelu3(self.conv3(x)), 2, 2)
+        x = max_pool_same(self.prelu3(self.conv3(x)), 2, 2)
         x = self.prelu4(self.conv4(x))
         x = self.prelu5(self.dense5(x.reshape(x.shape[0], -1)))  # CHW
         return (_softmax1(self.dense6_1(x)), self.dense6_2(x),

@@ -16,7 +16,7 @@ as the JAX package takes it. As flax computes them:
 
   * padding is flax's ``"SAME"``: at stride 2 on an even side it is (0, 1),
     not torch's symmetric (1, 1), so every convolution pads explicitly
-    (``_same_pad``);
+    (``common.same_pad``);
   * BatchNorm uses its running statistics with eps 1e-3 in flax's order
     (``common.batch_norm``), ReLU6 is ``min(relu(x), 6)``;
   * the heads' ``[b, -1, 4]`` and ``[b, -1, 91]`` reshapes run over NHWC, so
@@ -37,13 +37,12 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..utils.numerics import div, resize_hw
 from . import porting_maps
 from . import weights as weights_lib
-from .common import (_skeleton, apply_net, batch_norm, nms,
+from .common import (_skeleton, apply_net, batch_norm, nms, same_pad,
                      topk_stable)
 
 NUM_CLASSES = 90  # COCO labels 1..90
@@ -52,16 +51,6 @@ INPUT_SIZE = 300
 PREFILTER = 512
 IOU_THRESH = 0.6
 BN_EPS = 1e-3
-
-
-def _same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """flax's ``padding="SAME"`` of an NCHW input for a k x k window: out =
-    ceil(n / stride), the total padding split with the extra one after."""
-    pads = []
-    for n in (x.shape[3], x.shape[2]):  # F.pad takes the last axis first
-        total = max((-(-n // stride) - 1) * stride + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads) if any(pads) else x
 
 
 def _relu6(x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +65,7 @@ class ConvBNReLU6(nn.Module):
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x):
-        x = self.conv(_same_pad(x, self.k, self.stride))
+        x = self.conv(same_pad(x, self.k, self.stride))
         return _relu6(batch_norm(self.bn, x))
 
 
@@ -91,7 +80,7 @@ class DepthwiseSeparable(nn.Module):
 
     def forward(self, x):
         x = _relu6(batch_norm(self.dw_bn,
-                              self.dw(_same_pad(x, 3, self.stride))))
+                              self.dw(same_pad(x, 3, self.stride))))
         return _relu6(batch_norm(self.pw_bn, self.pw(x)))
 
 

@@ -12,3 +12,7 @@ from . import detection_decode  # noqa: F401
 from . import objects  # noqa: F401  (after faces: weights loader)
 from . import nn_generic  # noqa: F401
 from . import pose  # noqa: F401  (after faces: weights loader)
+from . import clothing  # noqa: F401  (after faces: weights loader)
+from . import legacy_extras  # noqa: F401  (after nn_generic: registry)
+from . import tracker  # noqa: F401
+from . import vis_labels  # noqa: F401

@@ -36,37 +36,46 @@ import torch
 from .. import protobufs
 from ..graph import NodeOutput, OpNode
 from ..models import facenet as facenet_lib
+from ..models import facenet_detector as facenet_detector_lib
 from ..models import faster_rcnn as faster_rcnn_lib
 from ..models import gender as gender_lib
 from ..models import maskrcnn as maskrcnn_lib
 from ..models import mtcnn as mtcnn_lib
 from ..models import pose as pose_lib
 from ..models import ssd as ssd_lib
+from ..models import streetstyle as streetstyle_lib
 from ..models import weights as weights_lib
 from ..models.common import crop_and_resize
+from ..parallel import expert as expert_lib
 from ..registry import register_composite, register_op
-from ..utils.framechunk import as_hwc_f32
+from ..runtime.executor import _tree_to
+from ..utils.framechunk import FrameChunk, as_hwc_f32
 
 _MODEL_CACHE: Dict[Any, Any] = {}
 
 MAX_FACES = mtcnn_lib.MAX_FACES
 
 # name -> the model's module (init_params, from_flax, to_flax), for every
-# op that loads weights (the detection ops of objects.py and nn_generic.py
-# and the pose ops too). The face and hand crop nets share OpenPoseCrop
-# but never their weights: each has its own name, so its own cache entry.
+# op that loads weights (the detection ops of objects.py and nn_generic.py,
+# the pose, attribute and landmark ops too). The face and hand crop nets
+# share OpenPoseCrop but never their weights, nor do the two attribute
+# head sets: each has its own name, so its own cache entry. "moe" takes
+# its (n_experts, d_model, d_hidden) as its arch.
 _MODELS = {"mtcnn": mtcnn_lib, "facenet": facenet_lib, "gender": gender_lib,
            "ssd": ssd_lib, "faster_rcnn": faster_rcnn_lib,
            "maskrcnn": maskrcnn_lib, "openpose": pose_lib,
            "openpose_face": pose_lib.FACE_NET,
-           "openpose_hand": pose_lib.HAND_NET}
+           "openpose_hand": pose_lib.HAND_NET,
+           "facenet_detector": facenet_detector_lib,
+           "streetstyle_clothing": streetstyle_lib.CLOTHING,
+           "streetstyle_hairstyle": streetstyle_lib.HAIRSTYLE,
+           "moe": expert_lib.MOE}
 
 
-def _get_params(model: str, weights_path: Optional[str],
-                arch: Optional[str] = None):
+def _get_params(model: str, weights_path: Optional[str], arch=None):
     """The model's weights as torch tensors on the CPU, once per (model,
     weights_path), and per arch for a model built in several (Mask R-CNN:
-    the arch fixes the tree)."""
+    the arch name fixes the tree; MoE: its dims)."""
     key = (model, weights_path) if arch is None else (model, weights_path,
                                                       arch)
     if key not in _MODEL_CACHE:
@@ -78,6 +87,71 @@ def _get_params(model: str, weights_path: Optional[str],
         else:
             _MODEL_CACHE[key] = lib.init_params(0, *extra)
     return _MODEL_CACHE[key]
+
+
+def _device_state(model: str, weights_path, device: torch.device,
+                  arch=None):
+    """A model's weights (``_get_params``) on ``device``, once per (model,
+    file, device). The executor resolves ``aux`` weight trees for device
+    ops only, so host ops that run a net (the pose decode's crop nets, the
+    attribute classifiers, the landmarks) move its weights themselves."""
+    key = ("device", model, weights_path, arch, str(device))
+    if key not in _MODEL_CACHE:
+        _MODEL_CACHE[key] = _tree_to(_get_params(model, weights_path, arch),
+                                     device)
+    return _MODEL_CACHE[key]
+
+
+def _run_device(ctx) -> torch.device:
+    """The run's device (the CPU where a caller gives no context)."""
+    dev = getattr(ctx, "device", None)
+    return torch.device(dev) if dev is not None else torch.device("cpu")
+
+
+# ------------------------------------------------------ host frames, crops
+
+def _to_f32_frames(frames) -> np.ndarray:
+    """A host op's frames (uint8 [T, H, W, 3] or a host FrameChunk) ->
+    float32 numpy [T, H, W, 3]."""
+    if isinstance(frames, FrameChunk):
+        return frames.host().hwc_u8().astype(np.float32)
+    return np.asarray(frames).astype(np.float32)
+
+
+def _crop_resize_host(frame: np.ndarray, bbox, out_size: int
+                      ) -> Optional[np.ndarray]:
+    """Reference crop semantics (face_embedding.py:64-72): int-truncated
+    normalized coords, cv2 resize (INTER_LINEAR, half-pixel centres); None
+    for degenerate crops. The host crop of the attribute classifiers,
+    ``CropClassify`` and the landmarks, as in the JAX package: the crop
+    kernel samples by another convention (``crop_and_resize``), so these
+    crops stay on the host."""
+    import cv2
+
+    h, w = frame.shape[:2]
+    crop = frame[int(bbox.y1 * h):int(bbox.y2 * h),
+                 int(bbox.x1 * w):int(bbox.x2 * w)]
+    if crop.shape[0] == 0 or crop.shape[1] == 0:
+        return None
+    return cv2.resize(crop, (out_size, out_size))
+
+
+def _host_crops(frames: np.ndarray, bboxes, crop_fn):
+    """Every box's crop of the chunk -> (crops [K, ...] float32, or None
+    when there is none; src, the (frame, box) of each crop; out, per-frame
+    lists of None, a slot a box, for the caller to fill).
+    ``crop_fn(frame, bbox)`` returns None for a degenerate box."""
+    crops, src = [], []
+    out = [[None] * len(bboxes[i]) for i in range(len(bboxes))]
+    for i, bbs in enumerate(bboxes):
+        for j, bbox in enumerate(bbs):
+            c = crop_fn(frames[i], bbox)
+            if c is not None:
+                crops.append(c)
+                src.append((i, j))
+    stacked = np.stack(crops).astype(np.float32, copy=False) if crops \
+        else None
+    return stacked, src, out
 
 
 # --------------------------------------------------------------- MTCNN

@@ -37,7 +37,7 @@ from ..registry import register_composite, register_op
 from ..types import register_type
 from ..utils.framechunk import FrameChunk, as_hwc_f32
 from ..utils.numerics import div, resize_hw
-from .faces import _MODEL_CACHE, _get_params
+from .faces import _device_state, _get_params, _run_device
 
 
 class Pose:
@@ -209,17 +209,6 @@ def crop_batch(frames: torch.Tensor, items: torch.Tensor,
                            gray=True)
 
 
-def _device_state(tag: str, weights_path, device: torch.device):
-    """A crop net's weights on ``device``, once per (net, file, device).
-    The executor resolves ``aux`` weight trees for device ops only, so the
-    host decode moves its crop nets to the chunk's device itself."""
-    key = (tag, weights_path, str(device))
-    if key not in _MODEL_CACHE:
-        _MODEL_CACHE[key] = {k: v.to(device) for k, v in
-                             _get_params(tag, weights_path).items()}
-    return _MODEL_CACHE[key]
-
-
 def _run_crop_net(tag: str, weights_path, n_kp: int, frames: torch.Tensor,
                   items: List, size: int) -> np.ndarray:
     """The crops of ``items`` cut from the chunk's frames on their device,
@@ -242,12 +231,6 @@ def _write_back(kp_full: np.ndarray, slot: int, n_kp: int, box,
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _run_device(ctx) -> torch.device:
-    """The run's device (the CPU where a caller gives no context)."""
-    dev = getattr(ctx, "device", None)
-    return torch.device(dev) if dev is not None else torch.device("cpu")
 
 
 def _on_device(ctx, x) -> torch.Tensor:

@@ -394,14 +394,27 @@ def test_nn_input_matches_jax():
 
 
 def test_unported_nn_ops_refuse(tmp_path):
+    """NNForward and MoEHead build over the eight registry names (the JAX
+    registry's); a model the registry lacks is refused with KeyError
+    (test_torch_nn_generic.py holds each forward to the JAX package)."""
     sc = st.Client(db_path=str(tmp_path / "db"), device="cpu")
-    assert sorted(PN._NN_REGISTRY) == [
-        "facenet_inception_resnet_v1", "faster_rcnn", "gender_levi_hassner",
-        "ssd_mobilenet_v1"]
-    frame = sc.io.Input([st.NamedStream(sc, "unused")])
-    for name in ("NNForward", "MoEHead"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            getattr(sc.ops, name)(input=frame, model="faster_rcnn")
+    assert sorted(PN._NN_REGISTRY) == sorted(JN._NN_REGISTRY) == [
+        "facenet_detector", "facenet_inception_resnet_v1", "faster_rcnn",
+        "gender_levi_hassner", "openpose_body", "ssd_mobilenet_v1",
+        "streetstyle_clothing", "streetstyle_hairstyle"]
+    rows = sc.io.Input([st.PythonStream([np.zeros(4, np.float32)] * 2)])
+    for name in PN._NN_REGISTRY:
+        assert sc.ops.NNForward(input=rows, model=name) is not None
+    moe = sc.ops.MoEHead(input=rows, n_experts=2, d_model=4, d_hidden=8)
+    out = st.NamedStream(sc, "moe")
+    sc.run(sc.io.Output(moe, [out]), st.PerfParams.manual(work_packet_size=2),
+           cache_mode=st.CacheMode.Overwrite)
+    assert [r.shape for r in out.load()] == [(4,), (4,)]
+    with pytest.raises(KeyError, match="no registered model 'vgg_face'"):
+        sc.run(sc.io.Output(sc.ops.NNForward(input=rows, model="vgg_face"),
+                            [st.NamedStream(sc, "nn")]),
+               st.PerfParams.manual(work_packet_size=2),
+               cache_mode=st.CacheMode.Overwrite)
 
 
 # ------------------------------------------------------------ pipelines

@@ -948,3 +948,91 @@ def test_openpose_forward_and_decode_launch_the_kernels(cuda_device):
                                         crop_net_size=32)
     assert [p.serialize() for f in poses for p in f] == \
         [p.serialize() for f in plain for p in f]
+
+
+# ------------------------------------------------- attribute nets, MoE
+
+CARD_CPU_RTOL = 1e-4  # float32 nets: largest difference over largest value
+
+
+def _card_vs_cpu(fn, state, x, cuda_device):
+    """fn(state, x) on the CPU and on the card -> (largest difference,
+    largest value) over every output."""
+    cpu = fn(state, x)
+    card = fn({k: v.to(cuda_device) for k, v in state.items()},
+              x.to(cuda_device))
+    if not isinstance(cpu, (list, tuple)):
+        cpu, card = [cpu], [card]
+    err = max(float((b.cpu() - a).abs().max()) for a, b in zip(cpu, card))
+    return err, max(float(a.abs().max()) for a in cpu)
+
+
+@pytest.mark.parametrize("tag", ["clothing", "hairstyle"])
+def test_streetstyle_card_matches_cpu(cuda_device, tag):
+    """The 299x299 trunk and heads on the card against the CPU (full
+    float32: TF32 would show as about 1e-3), and the predictions of the
+    classifier op's device call equal where no head is a near-tie."""
+    from scannertools_tpu_torch.models import streetstyle as PS
+
+    attrs = {"clothing": PS.CLOTHING_ATTRIBUTES,
+             "hairstyle": PS.HAIRSTYLE_ATTRIBUTES}[tag]
+    state = getattr(PS, f"init_params_{tag}")(0)
+    x = torch.from_numpy(np.random.default_rng(70).uniform(
+        0, 255, (4, PS.INPUT_SIZE, PS.INPUT_SIZE, 3)).astype(np.float32))
+    err, scale = _card_vs_cpu(
+        lambda s, c: PS.forward(s, c, attrs)[0], state, x, cuda_device)
+    assert err <= CARD_CPU_RTOL * scale, (err, scale)
+    stacked = PS.stack_head_params(
+        {k: v.to(cuda_device) for k, v in state.items()}, attrs)
+    _, feat = PS.forward({k: v.to(cuda_device) for k, v in state.items()},
+                         x.to(cuda_device), attrs)
+    masked = PS.masked_argmax(stacked, PS.heads_logits(stacked, feat))
+    per_head = PS._predict_multihead(state, x, attrs)
+    assert torch.equal(masked.cpu(), per_head)
+
+
+def test_facenet_detector_card_matches_cpu(cuda_device):
+    from scannertools_tpu_torch.models import facenet_detector as PFD
+
+    x = torch.from_numpy(np.random.default_rng(71).uniform(
+        -128, 128, (2, 120, 160, 3)).astype(np.float32))
+    err, scale = _card_vs_cpu(PFD.apply, PFD.init_params(0), x, cuda_device)
+    assert err <= CARD_CPU_RTOL * scale, (err, scale)
+
+
+def test_moe_card_matches_cpu(cuda_device):
+    """Routing equal on the card and the CPU, dropped rows included, then
+    the values."""
+    from scannertools_tpu_torch.parallel import expert as PE
+
+    params = PE.init_moe_params(0, 8, 128, 256)
+    x = torch.from_numpy(np.random.default_rng(72).normal(
+        size=(64, 128)).astype(np.float32))
+    route = [torch.argmax(x.to(d) @ params["router"].to(d), -1).cpu()
+             for d in (torch.device("cpu"), cuda_device)]
+    assert torch.equal(*route)
+    err, scale = _card_vs_cpu(
+        lambda p, r: PE.moe_reference(p, r, capacity=4), params, x,
+        cuda_device)
+    assert err <= CARD_CPU_RTOL * scale, (err, scale)
+
+
+def test_detect_clothing_on_the_card(cuda_device):
+    """DetectClothing and DetectHairStyle with a context on the card: the
+    crops go up in one copy and the records equal the CPU's."""
+    import types
+
+    from scannertools_tpu_torch import protobufs
+    from scannertools_tpu_torch.ops import clothing as PC
+
+    frames = np.random.default_rng(73).integers(
+        0, 256, (2, 120, 160, 3)).astype(np.uint8)
+    boxes = [[protobufs.BoundingBox(0.3, 0.1, 0.5, 0.4, 0.9),
+              protobufs.BoundingBox(0.6, 0.5, 0.6, 0.7, 0.9)],
+             [protobufs.BoundingBox(0.1, 0.2, 0.4, 0.5, 0.9)]]
+    card = types.SimpleNamespace(device=cuda_device)
+    for op in (PC.detect_clothing, PC.detect_hairstyle):
+        got = op(card, frames, boxes)
+        want = op(None, frames, boxes)
+        assert [[r.predictions.tolist() for r in f] for f in got] == \
+            [[r.predictions.tolist() for r in f] for f in want]
