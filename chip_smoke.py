@@ -138,8 +138,32 @@ MTCNN's 4 ``nms`` and 2 crops a chunk; records over their vocabularies,
 finite landmarks and MoE rows, detector boxes in the frame. One chunk is
 split by stage (MTCNN, the window scan, the host crops, the copies, the
 StreetStyle forwards), and StreetStyle, the facenet detector, FaceNet and
-MoE on the card are held to the CPU on one chunk. Each phase logs its
-wall seconds.
+MoE on the card are held to the CPU on one chunk.
+
+Phase 9 drives the legacy runners, the storage backends and CTC forced
+alignment. ``detect_shots`` (the ShotDetectionPipeline runner) runs over
+phase 2's stream from a decoder that gives RGB only, as cv2's does, so
+that its "auto" ingest takes ``hist_rgb``: boundaries [120, 240, 360]
+equal to phase 2's graph, one launch a 128-frame packet, and a second run
+with ``cache=True`` that skips the committed output (no launch). A
+``FaceDetectionPipeline`` subclass whose ``build_pipeline`` passes phase
+4's weights and thresholds runs over phase 4's frames: rows equal to phase
+4's ``MTCNNDetectFaces`` graph, 4 ``nms`` and 2 crops a chunk. Phase 2's
+histograms go to a ``PackedFileStream`` sink and read back equal to the
+``NamedStream`` rows, byte for byte; an sqlite ``SQLInputStream`` →
+Python op → ``SQLOutputStream`` job updates 100 rows; a WAV
+``AudioStream`` (the card's machine has no libav: WAV only) goes through
+a Python op. Then CTC at full width: 600 caption windows of T uniform in
+250-350 frames of V = 32 labels, lines of 40-80 characters (S 81-161),
+emissions the log-softmax of seeded logits with each line's path planted.
+``TranscriptAligner.align_words_ctc`` aligns the whole track in one
+``ctc_viterbi`` launch (kernels/csrc/ctc.cu), its records equal to the
+CPU's; the kernel is held to ``ctc_viterbi_plain`` on the card over every
+window (states equal, scores bit-equal) and on tied and 1025-state
+windows, and timed beside its bound, the floor of the scan's Tmax - 1
+dependent steps (a step's latency from ``viterbi_step_probe``, the steps
+with no global memory) and the time of the longest window alone. Each
+phase logs its wall seconds.
 
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
 ``{"kernels": [...]}``, the card's name and power limit from nvidia-smi,
@@ -151,6 +175,7 @@ or without the package beside this file, it fails the same way.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -3346,6 +3371,349 @@ def run_attribute_pipeline(db: str):
     return launches["clothing"][0]
 
 
+# ------------------------------------------------------------ phase 9
+
+
+# phase 9: CTC forced alignment of a track of CTC_WINDOWS caption windows,
+# T uniform in CTC_T frames, CTC_V labels, lines of CTC_CHARS characters
+CTC_WINDOWS, CTC_T, CTC_V, CTC_CHARS = 600, (250, 350), 32, (40, 80)
+CTC_FRAME_S = 0.02  # wav2vec2's 20 ms frames
+SHOTS_RUNNER_CHUNK = 128  # ShotDetectionPipeline.run_opts' work packet
+
+
+class RgbSyntheticDecoder(SyntheticDecoder):
+    """Phase 2's frames from a decoder that gives RGB only, as the cv2
+    decoder does: the runner's "auto" ingest then takes RGB24."""
+
+    i420_supported = False
+
+
+def run_shots_runner(db: str) -> dict:
+    """detect_shots over phase 2's stream, then again with cache=True,
+    which must skip the committed output -> the runner's result line."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.ops import histogram as H
+    from scannertools_tpu_torch.pipelines import detect_shots
+
+    stream_cls = synthetic_stream_class(
+        N_FRAMES, HEIGHT, WIDTH,
+        lambda: RgbSyntheticDecoder(N_FRAMES, HEIGHT, WIDTH))
+    sc = st.Client(db_path=os.path.join(db, "runners"))
+    runs = []
+    for _ in range(2):
+        H.hist_rgb.launches = H.hist_i420.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = detect_shots(sc, videos=[stream_cls(sc, "video")])
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "hist_rgb": H.hist_rgb.launches,
+                     "hist_i420": H.hist_i420.launches,
+                     "boundaries": next(outs[0].load(rows=[0]))})
+    direct = next(st.NamedStream(os.path.join(db, "rgb"), "shots").load(
+        rows=[0]))
+    want = {"hist_rgb": -(-N_FRAMES // SHOTS_RUNNER_CHUNK), "hist_i420": 0}
+    result = {"run": "detect_shots", "frames": N_FRAMES, "height": HEIGHT,
+              "width": WIDTH, "first": runs[0], "cached": runs[1],
+              "frames_per_s": N_FRAMES / runs[0]["seconds"],
+              "equal_direct_graph": runs[0]["boundaries"] == direct}
+    log(result)
+    for run in runs:
+        if run["boundaries"] != list(CUTS) or direct != list(CUTS):
+            raise AssertionError(f"detect_shots: {run['boundaries']}, "
+                                 f"phase 2 {direct}, want {list(CUTS)}")
+    if {k: runs[0][k] for k in want} != want:
+        raise AssertionError(f"detect_shots: launches {runs[0]}, want {want}")
+    if runs[1]["hist_rgb"] or runs[1]["hist_i420"]:
+        raise AssertionError("detect_shots with cache=True ran the job "
+                             f"again: {runs[1]}")
+    return {"hist_rgb": runs[0]["hist_rgb"]}
+
+
+def run_face_runner(db: str) -> dict:
+    """FaceDetectionPipeline over phase 4's frames, through a subclass whose
+    build_pipeline passes phase 4's weights and thresholds; its rows must
+    equal phase 4's MTCNNDetectFaces graph -> {kernel: launches}."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.pipelines import FaceDetectionPipeline
+
+    mtcnn_npz = os.path.join(db, "mtcnn.npz")  # written by phase 4
+
+    class FaceRunner(FaceDetectionPipeline):
+        run_opts = {"work_packet_size": FACE_CHUNK, "ingest": "rgb"}
+
+        def build_pipeline(self):
+            return self._sc.ops.MTCNNDetectFaces(
+                frame=self._sources["frame"], weights_path=mtcnn_npz,
+                thresholds=FACE_THRESHOLDS)
+
+    stream_cls = synthetic_stream_class(
+        FACE_FRAMES, FACE_H, FACE_W,
+        lambda: FaceDecoder(FACE_FRAMES, FACE_H, FACE_W))
+    sc = st.Client(db_path=os.path.join(db, "face_runner"))
+    MC.nms.launches = MC.crop_and_resize.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = FaceRunner.make_runner()(sc, videos=[stream_cls(sc, "faces")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"nms": MC.nms.launches,
+                "crop_and_resize": MC.crop_and_resize.launches}
+    rows = list(outs[0].load())
+    direct = list(st.NamedStream(os.path.join(db, "faces"), "faces").load())
+    chunks = -(-FACE_FRAMES // FACE_CHUNK)
+    want = {k: n * chunks for k, n in FACE_LAUNCHES_PER_CHUNK["faces"].items()}
+    log({"run": "face_runner", "frames": FACE_FRAMES, "height": FACE_H,
+         "width": FACE_W, "seconds": seconds, "launches": launches,
+         "faces": sum(len(f) for f in rows),
+         "equal_direct_graph": _face_rows_equal("faces", rows, direct)})
+    if launches != want:
+        raise AssertionError(f"face runner: launches {launches}, want {want}")
+    if not _face_rows_equal("faces", rows, direct) or not any(rows):
+        raise AssertionError("face runner: rows differ from phase 4's graph")
+    return launches
+
+
+def run_storage_paths(db: str) -> dict:
+    """Phase 2's histograms to a PackedFileStream and back; an sqlite
+    SQLInputStream -> Python op -> SQLOutputStream job; a WAV AudioStream
+    through a Python op -> {kernel: launches of the histogram job}."""
+    import sqlite3
+    import wave
+
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch import types as st_types
+    from scannertools_tpu_torch.ops import histogram as H
+    from scannertools_tpu_torch.storage.sql import (SQLConfig,
+                                                    SQLInputStream,
+                                                    SQLOutputStream,
+                                                    SQLQuery, SQLStorage)
+
+    sc = st.Client(db_path=os.path.join(db, "storage"))
+    # histograms of phase 2's RGB stream, sunk to one packed file
+    stream_cls = synthetic_stream_class(
+        N_FRAMES, HEIGHT, WIDTH,
+        lambda: SyntheticDecoder(N_FRAMES, HEIGHT, WIDTH))
+    packed = st.PackedFileStream(os.path.join(db, "hist.pack"))
+    hist = sc.ops.Histogram(frame=sc.io.Input([stream_cls(sc, "video")]))
+    H.hist_rgb.launches = H.hist_i420.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc.run(sc.io.Output(hist, [packed]),
+           st.PerfParams.manual(work_packet_size=CHUNK, ingest="rgb"),
+           cache_mode=st.CacheMode.Overwrite)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"hist_rgb": H.hist_rgb.launches,
+                "hist_i420": H.hist_i420.launches}
+    named = st.NamedStream(os.path.join(db, "rgb"), "hist")
+    parse = st_types.get_type(named.type_name()).parse
+    got = np.stack([np.stack(parse(b)) for b in packed.load_bytes()])
+    want = np.stack([np.stack(r) for r in named.load()])
+    packed_equal = got.shape == (N_FRAMES, 3, 16) and bool((got == want).all())
+    bytes_equal = list(packed.load_bytes()) == list(named.load_bytes())
+
+    # sqlite rows through a Python op (tests/test_sql.py's update by id)
+    dbfile = os.path.join(db, "t.db")
+    conn = sqlite3.connect(dbfile)
+    conn.execute("CREATE TABLE test (id integer PRIMARY KEY, a integer, "
+                 "b integer, grp integer)")
+    conn.executemany("INSERT INTO test VALUES (?, ?, 0, ?)",
+                     [(i, 10 * i, i % 3) for i in range(1, 101)])
+    conn.execute("CREATE TABLE jobs (id integer PRIMARY KEY, name text)")
+    conn.commit()
+
+    @st.register_python_op(name="ChipSmokeAddOne", outputs=("bytes",))
+    def add_one(ctx, rows):
+        return [json.dumps([{"id": x["id"], "b": x["a"] + 1}
+                            for x in json.loads(bytes(r).decode())]).encode()
+                for r in rows]
+
+    storage = SQLStorage(SQLConfig(adapter="sqlite", dbname=dbfile),
+                         job_table="jobs")
+    rows_in = SQLInputStream(
+        query=SQLQuery(fields="test.id as id, test.a as a", table="test",
+                       id="test.id", group="test.grp"),
+        filter="1=1", storage=storage)
+    sql_out = SQLOutputStream(table="test", storage=storage,
+                              job_name="chip_smoke", insert=False)
+    sc.run(sc.io.Output(sc.ops.ChipSmokeAddOne(rows=sc.io.Input([rows_in])),
+                        [sql_out]), st.PerfParams.estimate(),
+           cache_mode=st.CacheMode.Overwrite)
+    b = [r[0] for r in conn.execute("SELECT b FROM test ORDER BY id")]
+    conn.close()
+    sql_ok = (len(rows_in) == 3 and sql_out.committed()
+              and b == [10 * i + 1 for i in range(1, 101)])
+
+    # WAV audio (the card's machine has no libav: WAV only) through an op
+    rate = 16000
+    sig = (0.5 * np.sin(2 * np.pi * 440 * np.arange(rate * 5) / rate)
+           * 32767).astype(np.int16)
+    wav_path = os.path.join(db, "a.wav")
+    with wave.open(wav_path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(sig.tobytes())
+
+    @st.register_python_op(name="ChipSmokeRms", outputs=("object",))
+    def rms(ctx, samples):
+        return [float(np.sqrt(np.mean(np.square(s)))) for s in samples]
+
+    audio = st.AudioStream(wav_path, frame_size=1.0)
+    audio_out = st.NamedStream(sc, "rms")
+    sc.run(sc.io.Output(sc.ops.ChipSmokeRms(samples=sc.io.Input([audio])),
+                        [audio_out]), st.PerfParams.estimate(),
+           cache_mode=st.CacheMode.Overwrite)
+    levels = list(audio_out.load())
+    want_rms = [float(np.sqrt(np.mean(np.square(
+        sig[i * rate:(i + 1) * rate].astype(np.float32) / 32768.0))))
+        for i in range(5)]
+    audio_ok = levels == want_rms
+
+    result = {"run": "storage", "packed_seconds": seconds,
+              "launches": launches, "packed_rows_equal_named": packed_equal,
+              "packed_bytes_equal_named": bytes_equal, "sql_ok": sql_ok,
+              "audio_rms": levels, "audio_ok": audio_ok}
+    log(result)
+    want_launches = {"hist_rgb": -(-N_FRAMES // CHUNK), "hist_i420": 0}
+    if launches != want_launches:
+        raise AssertionError(f"packed sink: launches {launches}, want "
+                             f"{want_launches}")
+    if not (packed_equal and bytes_equal and sql_ok and audio_ok):
+        raise AssertionError(f"storage round trips: {result}")
+    return launches
+
+
+def ctc_bound(t_len, s_len) -> tuple:
+    """(bound_ms, bound_by) of a ctc_viterbi call on windows of these T
+    and S: log_probs read once and the path written once, the labels,
+    skips and lengths read once and the scores written once (the int8
+    back-pointers are the kernel's own scratch, not the function's); a
+    compare, a compare and an add a lattice cell."""
+    cells = sum((t - 1) * s for t, s in zip(t_len, s_len))
+    nbytes = (sum(t * CTC_V * 4 + t * 4 for t in t_len)
+              + sum(s * 5 for s in s_len) + len(t_len) * 12)
+    return bound_ms(nbytes, 3 * cells)
+
+
+def run_ctc(db: str) -> tuple:
+    """Phase 9's CTC track: the main path (TranscriptAligner.
+    align_words_ctc over the track, one launch), then ctc_viterbi held to
+    its plain version on the card over every window, timed -> (launches,
+    the kernel's record)."""
+    import torch
+
+    from scannertools_tpu_torch.ops import ctc_align as CA
+    from scannertools_tpu_torch.ops.legacy_extras import TranscriptAligner
+    from scannertools_tpu_torch.storage.captions import Caption
+    from scannertools_tpu_torch.tools.timing import ctc_track
+
+    vocab = CA.char_vocab()
+    track = ctc_track(9, CTC_WINDOWS, vocab, CTC_T, CTC_V, CTC_CHARS)
+
+    # the track as one emission array with a caption a window: a caption
+    # spans its window's frames, so margin 0 cuts exactly that window
+    log_probs = np.concatenate([lp for lp, _, _ in track])
+    caps, at = [], 0
+    for i, (lp, line, _) in enumerate(track):
+        caps.append(Caption(i, (at + 0.5) * CTC_FRAME_S,
+                            (at + lp.shape[0] - 0.5) * CTC_FRAME_S, line))
+        at += lp.shape[0]
+    CA.ctc_viterbi.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words = TranscriptAligner().align_words_ctc(caps, log_probs, CTC_FRAME_S,
+                                                vocab=vocab, margin_s=0.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = CA.ctc_viterbi.launches
+    n_words = sum(len(line.split()) for _, line, _ in track)
+    hits = sum(w.success() for w in words)
+    # the same records on the CPU, where the DP is the plain version
+    cpu_words = TranscriptAligner().align_words_ctc(
+        caps, log_probs, CTC_FRAME_S, vocab=vocab, margin_s=0.0, device="cpu")
+    records_equal = [dataclasses.astuple(w) for w in words] == \
+        [dataclasses.astuple(w) for w in cpu_words]
+
+    # the kernel against its plain version on the card, every window
+    packed = CA.pack_windows([(lp, tok) for lp, _, tok in track])
+    args = [torch.from_numpy(x).cuda() for x in packed]
+    states, scores = CA.ctc_viterbi(*args)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    want_states, want_scores = CA.ctc_viterbi_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t2) * 1e3
+    states_equal = bool(torch.equal(states, want_states))
+    scores_equal = bool(torch.equal(scores, want_scores))
+    err = float((scores - want_scores).abs().max())
+    # every move tied (all-zero emissions) and a window of 1025 states
+    ties = [(np.zeros((t, CTC_V), np.float32), [2 + k % 27 for k in range(n)])
+            for t, n in [(1, 1), (3, 3), (300, 80), (600, 512)]]
+    tie_args = [torch.from_numpy(x).cuda() for x in CA.pack_windows(ties)]
+    got_ties = CA.ctc_viterbi(*tie_args)
+    want_ties = CA.ctc_viterbi_plain(*tie_args)
+    ties_equal = all(bool(torch.equal(a, b))
+                     for a, b in zip(got_ties, want_ties))
+
+    t_len, s_len = packed[1].tolist(), packed[4].tolist()
+    longest = int(np.argmax(t_len))
+    one = [x[longest:longest + 1] for x in args]
+    bound, by = ctc_bound(t_len, s_len)
+    # the scan's floor: Tmax - 1 dependent steps at the latency of one,
+    # the slope of the probe (the steps with no global memory, in the
+    # block the kernel launches for Smax states) between two step counts
+    smax, lo, hi = max(s_len), max(t_len) - 1, 8 * (max(t_len) - 1)
+    probe_lo = time_ms(lambda: CA.viterbi_step_probe(lo, smax), fence=True)
+    probe_hi = time_ms(lambda: CA.viterbi_step_probe(hi, smax), fence=True)
+    step_ns = (probe_hi - probe_lo) / (hi - lo) * 1e6
+    record = {
+        "ms": time_ms(lambda: CA.ctc_viterbi(*args)),
+        "device_ms": time_ms(lambda: CA.ctc_viterbi(*args), fence=True),
+        "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by,
+        "step_ns": step_ns, "step_floor_ms": step_ns * lo * 1e-6,
+        # the kernel's device time on the track's longest window alone
+        "one_window_ms": time_ms(lambda: CA.ctc_viterbi(*one), fence=True),
+        "max_abs_err": err}
+    CA.ctc_viterbi.launches = launches  # timing launches do not count
+    log({"run": "ctc", "windows": CTC_WINDOWS, "frames": int(sum(t_len)),
+         "t_range": [min(t_len), max(t_len)],
+         "s_range": [min(s_len), max(s_len)], "v": CTC_V,
+         "seconds": seconds, "launches": launches, "words": len(words),
+         "words_in_lines": n_words, "words_found": hits,
+         "records_equal_cpu": records_equal, "states_equal": states_equal,
+         "scores_bit_equal": scores_equal, "ties_equal": ties_equal})
+    log({"timing": "ctc_viterbi", "shape": [CTC_WINDOWS, max(t_len), CTC_V,
+                                           max(s_len)], **record})
+    if launches != 1:
+        raise AssertionError(f"align_words_ctc: {launches} launches of "
+                             "ctc_viterbi, want 1")
+    if len(words) != n_words or hits < 0.99 * n_words:
+        raise AssertionError(f"align_words_ctc: {len(words)} words, "
+                             f"{hits} found, of {n_words}")
+    if not (records_equal and states_equal and scores_equal and ties_equal):
+        raise AssertionError("ctc_viterbi disagrees with its plain version")
+    return launches, record
+
+
+def run_port_rest(db: str) -> tuple:
+    """Phase 9 -> ({kernel: launches by path}, the ctc_viterbi record)."""
+    launches = {"detect_shots": run_shots_runner(db),
+                "face_runner": run_face_runner(db),
+                "storage": run_storage_paths(db)}
+    launches["ctc"], record = run_ctc(db)
+    return launches, record
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3384,6 +3752,8 @@ def main() -> int:
         pose_launches, records["pose_peaks"], gray = phase(
             "7: pose", run_pose_pipeline, db)
         attr_launches = phase("8: attributes", run_attribute_pipeline, db)
+        rest_launches, records["ctc_viterbi"] = phase(
+            "9: runners, storage, CTC", run_port_rest, db)
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
@@ -3391,7 +3761,8 @@ def main() -> int:
                               "detection": det_launches,
                               "maskrcnn": mrcnn_launches,
                               "pose": pose_launches,
-                              "attributes": attr_launches}})
+                              "attributes": attr_launches,
+                              "runners_storage_ctc": rest_launches}})
     log({"timing": "crop_and_resize", "call": "pose_gray_hands", **gray})
     kernels = [
         {"name": "hist_rgb", "route": "cuda",
@@ -3435,6 +3806,13 @@ def main() -> int:
          "source": "scannertools_tpu_torch/kernels/csrc/peaks.cu",
          "replaces": "scannertools_tpu/models/pose.py:363",
          "launches": pose_launches["pose_peaks"], **records["pose_peaks"],
+         "library_ms": None},
+        # ctc_loss sums paths (log-sum-exp); no torch call takes the best
+        # path and its back-pointers
+        {"name": "ctc_viterbi", "route": "cuda",
+         "source": "scannertools_tpu_torch/kernels/csrc/ctc.cu",
+         "replaces": "scannertools_tpu/ops/ctc_align.py:79",
+         "launches": rest_launches["ctc"], **records["ctc_viterbi"],
          "library_ms": None},
     ]
     log({"kernels": kernels})

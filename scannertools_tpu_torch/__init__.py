@@ -25,7 +25,10 @@ from .config import CacheMode, Config, DeviceType, PerfParams
 from .client import Client
 from .registry import register_op, register_python_op
 from .runtime.context import Kernel
-from .storage import NamedStream, NamedVideoStream, PythonStorage, PythonStream
+from .storage import (AudioStorage, AudioStream, CaptionStorage,
+                      CaptionStream, FilesStorage, FilesStream, NamedStream,
+                      NamedVideoStream, PackedFileStorage, PackedFileStream,
+                      PythonStorage, PythonStream)
 
 # Populate the op registry.
 from . import ops as _ops  # noqa: F401
@@ -35,8 +38,10 @@ FrameType = "frame"  # type tag for python-op signatures (scannerpy.FrameType)
 __version__ = "0.1.0"
 
 __all__ = [
-    "CacheMode", "Client", "Config", "DeviceType", "FrameType", "Kernel",
-    "NamedStream", "NamedVideoStream", "PerfParams", "PythonStorage",
+    "AudioStorage", "AudioStream", "CacheMode", "CaptionStorage",
+    "CaptionStream", "Client", "Config", "DeviceType", "FilesStorage",
+    "FilesStream", "FrameType", "Kernel", "NamedStream", "NamedVideoStream",
+    "PackedFileStorage", "PackedFileStream", "PerfParams", "PythonStorage",
     "PythonStream", "protobufs", "register_op", "register_python_op",
     "types",
 ]

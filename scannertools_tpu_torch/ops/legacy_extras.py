@@ -18,7 +18,9 @@ The JAX package's ops/legacy_extras.py (scannertools_tpu): the crops are
 cut on the host with cv2 as there, go to the run's device in one copy and
 through the net in one forward. ``TranscriptAligner`` and
 ``WordAlignment`` are numpy, copied; the aligner's CTC method
-(``align_words_ctc``) comes with ops/ctc_align.py.
+(``align_words_ctc``) aligns every caption window of a track in one
+``ctc_viterbi`` launch (ops/ctc_align.py) where the JAX package runs one
+jitted program a window.
 """
 
 from __future__ import annotations
@@ -224,6 +226,37 @@ class TranscriptAligner:
                 out.append(WordAlignment(
                     w, (a + f0) * fs, (a + max(f1, f0 + 1)) * fs, score))
         return out
+
+    # ------------------------------------------- ASR forced alignment
+    def align_words_ctc(self, captions, log_probs, frame_s: float,
+                        vocab=None, blank: int = 0, margin_s: float = 1.0,
+                        device=None):
+        """gentle-equivalent forced alignment from CTC acoustic emissions
+        (ops/ctc_align.py): per caption window, Viterbi-align the words to
+        the emission slice covering the (offset-corrected) caption span
+        plus ``margin_s`` slack on each side — the reference's sliding
+        gentle windows (old/transcript_alignment.py:206-264). Emissions
+        come from any char-CTC model: `ctc_align.wav2vec2_log_probs` runs
+        a transformers Wav2Vec2ForCTC checkpoint when its weights are on
+        disk, or pass logits computed elsewhere. Returns
+        ``ctc_align.AlignedWord`` records with absolute times and acoustic
+        scores (word.success() is gentle's success/not-found-in-audio).
+        Every window goes to one ``ctc_viterbi`` call on ``device`` (None:
+        the CUDA device); the records equal those of
+        ``align_transcript_ctc`` run a window at a time."""
+        from .ctc_align import align_windows_ctc
+
+        n_fr = log_probs.shape[0]
+        windows = []
+        for c in captions:
+            a = max(0, int((c.start - margin_s) / frame_s))
+            b = min(n_fr, int(np.ceil((c.end + margin_s) / frame_s)))
+            if b <= a:
+                continue
+            windows.append((log_probs[a:b], c.line, a * frame_s))
+        per_window = align_windows_ctc(windows, frame_s, vocab=vocab,
+                                       blank=blank, device=device)
+        return [w for words in per_window for w in words]
 
 
 @dataclasses.dataclass

@@ -240,3 +240,56 @@ def level_boxes(rng, t: int, k: int, canvas, lo: float = 2.0,
     boxes = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
     boxes[::9] = 0.0
     return boxes, np.repeat(np.arange(t), k).astype(np.int64)
+
+
+def planted_emissions(rng, tokens, t: int, v: int, blank: int = 0,
+                      gain: float = 3.0) -> np.ndarray:
+    """[t, v] float32 log-softmax of seeded normal logits with a CTC path
+    through ``tokens`` planted: each token once (a blank between equal
+    neighbours), centred in blank frames, its frames' labels raised by
+    ``gain``. Needs t >= the lattice's mandatory frames."""
+    logits = rng.normal(0.0, 1.0, (t, v)).astype(np.float32)
+    path = []
+    for tok in tokens:
+        if path and path[-1] == tok:
+            path.append(blank)
+        path.append(tok)
+    path = [blank] * ((t - len(path)) // 2) + path
+    path += [blank] * (t - len(path))
+    logits[np.arange(t), path] += gain
+    z = logits - logits.max(axis=1, keepdims=True)
+    return (z - np.log(np.exp(z).sum(axis=1, keepdims=True))).astype(
+        np.float32)
+
+
+def ctc_track(seed: int, windows: int, vocab: dict, t_range=(250, 350),
+              v: int = 32, n_range=(40, 80)):
+    """Caption windows of a track: [(log_probs [T, v], line, tokens)].
+    Each line is lowercase words of at most 8 letters with single spaces, N
+    characters with N uniform in ``n_range`` (S = 2N + 1 lattice states);
+    its tokens are its characters by ``vocab``, a space as the word
+    delimiter ``vocab["|"]`` (what ``encode_transcript`` gives such a
+    line). T is uniform in ``t_range``, raised to the lattice's mandatory
+    frames where it is below them, and the tokens' path is planted."""
+    rng = np.random.default_rng(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    out = []
+    for _ in range(windows):
+        n = int(rng.integers(n_range[0], n_range[1] + 1))
+        words = []
+        while True:
+            left = n - len(" ".join(words))
+            if left <= 0:
+                break
+            if words and left == 1:  # no room for a space and a letter
+                words[-1] += letters[int(rng.integers(26))]
+                break
+            k = min(int(rng.integers(2, 9)), left - (1 if words else 0))
+            words.append("".join(letters[i] for i in rng.integers(0, 26, k)))
+        line = " ".join(words)
+        tokens = np.array([vocab["|" if c == " " else c] for c in line])
+        need = len(tokens) + int((tokens[1:] == tokens[:-1]).sum())
+        t = max(need, int(rng.integers(t_range[0], t_range[1] + 1)))
+        out.append((planted_emissions(rng, tokens, t, v), line,
+                    tokens.tolist()))
+    return out

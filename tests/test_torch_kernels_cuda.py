@@ -25,7 +25,12 @@ edges, ties and fill rows, on peaks and plateaus across the bands' edges,
 a constant plateau (every pixel a peak), maps off a 16-byte boundary
 (the 4-byte path), maps of fewer rows than the cluster has blocks, rising
 and falling ramps of peaks that refill the warps' buffers, 64 frames and
-trained-like maps. Inputs are made from a seed with numpy.
+trained-like maps; ``ctc_viterbi`` (one block a caption window) on
+all-zero emissions (every move ties), repeated tokens, T equal to the
+lattice's mandatory frames, a batch of windows of mixed T and S, and a
+window of 1025 states (more than a block has threads), and skip flags on
+states 0 and 1 (no state below 0 is read); the scan's floor probe against
+its recurrence. Inputs are made from a seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -1036,3 +1041,99 @@ def test_detect_clothing_on_the_card(cuda_device):
         want = op(None, frames, boxes)
         assert [[r.predictions.tolist() for r in f] for f in got] == \
             [[r.predictions.tolist() for r in f] for f in want]
+
+
+# ---------------------------------------------------------------- ctc_viterbi
+
+
+def _ctc_check(windows, device):
+    """ctc_viterbi on the card against ctc_viterbi_plain on the CPU, over
+    one batch of windows: states equal, scores bit-equal."""
+    from scannertools_tpu_torch.ops import ctc_align as CA
+
+    packed = [torch.from_numpy(x) for x in CA.pack_windows(windows)]
+    before = CA.ctc_viterbi.launches
+    states, scores = CA.ctc_viterbi(*[x.to(device) for x in packed])
+    torch.cuda.synchronize()
+    assert CA.ctc_viterbi.launches == before + 1
+    want_states, want_scores = CA.ctc_viterbi_plain(*packed)
+    assert torch.equal(states.cpu(), want_states)
+    assert torch.equal(scores.cpu(), want_scores)
+
+
+@pytest.mark.parametrize("case", ["ties", "repeats", "t_equals_need",
+                                  "mixed", "smax_1025"])
+def test_ctc_viterbi_kernel_matches_plain(cuda_device, case):
+    from scannertools_tpu_torch.ops import ctc_align as CA
+    from scannertools_tpu_torch.tools.timing import (ctc_track,
+                                                     planted_emissions)
+
+    rng = np.random.default_rng(80)
+    v = 32
+    if case == "ties":  # every move ties at every cell
+        windows = [(np.zeros((t, v), np.float32),
+                    [2 + k % 29 for k in range(n)])
+                   for t, n in [(1, 1), (4, 1), (3, 3), (20, 6), (300, 60)]]
+    elif case == "repeats":  # the skip barred between equal tokens
+        windows = [(planted_emissions(rng, tok, t, v), tok)
+                   for tok, t in [([5, 5], 3), ([5, 5, 5, 7, 7], 12),
+                                  ([9] * 40, 79), ([9] * 40, 200)]]
+        windows += [(np.zeros((t, v), np.float32), tok)
+                    for tok, t in [([5, 5], 3), ([9] * 40, 79)]]
+    elif case == "t_equals_need":  # the tightest lattice
+        windows = []
+        for n in (1, 7, 60):
+            tok = rng.integers(1, 4, n).tolist()
+            need = n + sum(a == b for a, b in zip(tok, tok[1:]))
+            windows.append((planted_emissions(rng, tok, need, v), tok))
+    elif case == "mixed":  # padded frames and states must not leak
+        windows = [(lp, tok) for lp, _, tok in ctc_track(
+            81, 40, CA.char_vocab(), t_range=(5, 350), n_range=(1, 80))]
+    else:  # more states than a 1024-thread block has threads
+        tok = rng.integers(1, v, 512).tolist()
+        windows = [(planted_emissions(rng, tok, 700, v), tok)]
+        windows += [(lp, tok) for lp, _, tok in ctc_track(
+            82, 3, CA.char_vocab())]
+        assert max(2 * len(t) + 1 for _, t in windows) == 1025
+    _ctc_check(windows, cuda_device)
+
+
+def test_ctc_viterbi_kernel_reads_no_state_below_0(cuda_device):
+    """allow_skip set on states 0 and 1 of every window: the kernel reads
+    no alpha below state 0 and agrees with its plain version, for which
+    the flags change nothing."""
+    from scannertools_tpu_torch.ops import ctc_align as CA
+    from scannertools_tpu_torch.tools.timing import (ctc_track,
+                                                     planted_emissions)
+
+    rng = np.random.default_rng(83)
+    windows = [(lp, tok) for lp, _, tok in ctc_track(
+        83, 8, CA.char_vocab(), t_range=(3, 60), n_range=(1, 20))]
+    windows.append((np.zeros((5, 32), np.float32), [4, 4]))
+    windows.append((planted_emissions(rng, [7], 2, 32), [7]))
+    packed = [torch.from_numpy(x) for x in CA.pack_windows(windows)]
+    want = CA.ctc_viterbi_plain(*packed)
+    packed[3][:, :2] = True
+    got = CA.ctc_viterbi(*[x.to(cuda_device) for x in packed])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("steps,smax", [(0, 2), (1, 3), (349, 161),
+                                        (40, 1025)])
+def test_ctc_step_probe_matches_its_recurrence(cuda_device, steps, smax):
+    """The floor probe runs the forward recurrence it claims to: its last
+    alpha equals a torch loop of the same steps."""
+    from scannertools_tpu_torch.ops import ctc_align as CA
+
+    got = CA.viterbi_step_probe(steps, smax, cuda_device).cpu()
+    s = torch.arange(smax)
+    emit = torch.where(s % 2 == 1, -0.5, -0.25).float()
+    neg = torch.full((smax,), CA.NEG, dtype=torch.float32)
+    alpha = torch.where(s <= 1, 0.0, neg).float()
+    for _ in range(steps):
+        adv = torch.cat([neg[:1], alpha[:-1]])
+        skp = torch.cat([neg[:2], alpha[:-2]])
+        alpha = torch.maximum(alpha, torch.maximum(adv, skp)) + emit
+    assert torch.equal(got, alpha)
