@@ -157,13 +157,17 @@ a Python op. Then CTC at full width: 600 caption windows of T uniform in
 250-350 frames of V = 32 labels, lines of 40-80 characters (S 81-161),
 emissions the log-softmax of seeded logits with each line's path planted.
 ``TranscriptAligner.align_words_ctc`` aligns the whole track in one
-``ctc_viterbi`` launch (kernels/csrc/ctc.cu), its records equal to the
-CPU's; the kernel is held to ``ctc_viterbi_plain`` on the card over every
-window (states equal, scores bit-equal) and on tied and 1025-state
-windows, and timed beside its bound, the floor of the scan's Tmax - 1
-dependent steps (a step's latency from ``viterbi_step_probe``, the steps
-with no global memory) and the time of the longest window alone. Each
-phase logs its wall seconds.
+``ctc_viterbi`` launch (kernels/csrc/ctc.cu) on its warp path (a warp a
+window, no back-pointer scratch: the peak device memory of the call is
+logged), its records equal to the CPU's; the kernel is held to
+``ctc_viterbi_plain`` on the card over every window (states equal,
+scores bit-equal) and, on both of its paths, on tied windows, batches of
+S on the warp lanes' edges, a 1025-state window, a Tmax past shared
+memory, V = 29 and 48 and emissions off a 16-byte boundary; it is timed
+beside its bound, the floor of the scan's Tmax - 1 dependent steps (a
+step's latency from ``viterbi_step_probe``, the warp path's steps with no
+emission load and no move stored; the block path's beside it) and the
+time of the longest window alone. Each phase logs its wall seconds.
 
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
 ``{"kernels": [...]}``, the card's name and power limit from nvidia-smi,
@@ -3604,10 +3608,72 @@ def ctc_bound(t_len, s_len) -> tuple:
     return bound_ms(nbytes, 3 * cells)
 
 
+def ctc_paths_hold(CA) -> dict:
+    """ctc_viterbi held to ctc_viterbi_plain on the card on both paths,
+    beyond the track: every move tied (warp and block), windows of S on
+    the warp lanes' edges (batches of Smax 33, 256 and 257), a window of
+    1025 states and one of a Tmax past shared memory (block path), and
+    the ring's fills (V 29 and 48, emissions off a 16-byte boundary) ->
+    {check: [path taken, equal]}."""
+    import torch
+
+    from scannertools_tpu_torch.tools.timing import (CTC_LANE_EDGES,
+                                                     ctc_edge_batch,
+                                                     planted_emissions)
+
+    rng = np.random.default_rng(91)
+    fit = max(t for t in range(3000, 4000)
+              if CA.window_bytes(t, CTC_V) <= CA.SHARED_MAX)
+    tok = rng.integers(1, CTC_V, 40).tolist()
+    batches = {
+        "ties_warp": CA.pack_windows(
+            [(np.zeros((t, CTC_V), np.float32),
+              [2 + k % 27 for k in range(n)])
+             for t, n in [(1, 1), (3, 3), (300, 80), (350, 127)]]),
+        "ties_block": CA.pack_windows(
+            [(np.zeros((t, CTC_V), np.float32),
+              [2 + k % 27 for k in range(n)])
+             for t, n in [(1, 1), (3, 3), (300, 80), (600, 512)]]),
+        "long_block": CA.pack_windows(
+            [(planted_emissions(rng, tok, fit + 1, CTC_V), tok),
+             (planted_emissions(rng, [3, 4], 9, CTC_V), [3, 4])]),
+        "v29_4byte": ctc_edge_batch(93, [3, 33, 81, 161], v=29, extra=60),
+        "v48_bulk": ctc_edge_batch(94, [3, 33, 81, 161], v=48, extra=60),
+    }
+    for smax in (33, 256, 257):
+        batches[f"edges_smax{smax}"] = ctc_edge_batch(
+            92 + smax, [s for s in CTC_LANE_EDGES if s <= smax])
+    out = {}
+    for name, packed in batches.items():
+        args = [torch.from_numpy(x).cuda() for x in packed]
+        before = dict(CA.ctc_viterbi.path_launches)
+        got = CA.ctc_viterbi(*args)
+        path = [p for p, n in CA.ctc_viterbi.path_launches.items()
+                if n != before[p]]
+        want = CA.ctc_viterbi_plain(*args)
+        out[name] = [path, all(bool(torch.equal(a, b))
+                               for a, b in zip(got, want))]
+    # emissions a float off a 16-byte boundary: the 4-byte fill at V = 32
+    packed = ctc_edge_batch(95, [3, 33, 81, 161], extra=60)
+    lp = torch.from_numpy(packed[0]).cuda()
+    buf = torch.empty(lp.numel() + 1, dtype=torch.float32, device=lp.device)
+    view = buf[1:].view(lp.shape)
+    view.copy_(lp)
+    rest = [torch.from_numpy(x).cuda() for x in packed[1:]]
+    got = CA.ctc_viterbi(view, *rest)
+    want = CA.ctc_viterbi_plain(lp, *rest)
+    out["v32_unaligned"] = [
+        [CA.viterbi_geometry(4, lp.shape[1], 161, CTC_V,
+                             aligned=False)["path"]],
+        all(bool(torch.equal(a, b)) for a, b in zip(got, want))]
+    return out
+
+
 def run_ctc(db: str) -> tuple:
     """Phase 9's CTC track: the main path (TranscriptAligner.
-    align_words_ctc over the track, one launch), then ctc_viterbi held to
-    its plain version on the card over every window, timed -> (launches,
+    align_words_ctc over the track, one launch, on the warp path), then
+    ctc_viterbi held to its plain version on the card over every window
+    and on both paths' edge cases (``ctc_paths_hold``), timed -> (launches,
     the kernel's record)."""
     import torch
 
@@ -3628,13 +3694,18 @@ def run_ctc(db: str) -> tuple:
                             (at + lp.shape[0] - 0.5) * CTC_FRAME_S, line))
         at += lp.shape[0]
     CA.ctc_viterbi.launches = 0
+    CA.ctc_viterbi.path_launches = {"warp": 0, "block": 0}
     torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     words = TranscriptAligner().align_words_ctc(caps, log_probs, CTC_FRAME_S,
                                                 vocab=vocab, margin_s=0.0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated() - mem_before
     launches = CA.ctc_viterbi.launches
+    path_launches = dict(CA.ctc_viterbi.path_launches)
     n_words = sum(len(line.split()) for _, line, _ in track)
     hits = sum(w.success() for w in words)
     # the same records on the CPU, where the DP is the plain version
@@ -3646,6 +3717,8 @@ def run_ctc(db: str) -> tuple:
     # the kernel against its plain version on the card, every window
     packed = CA.pack_windows([(lp, tok) for lp, _, tok in track])
     args = [torch.from_numpy(x).cuda() for x in packed]
+    geo = CA.viterbi_geometry(*packed[0].shape[:2], packed[2].shape[1],
+                              CTC_V)
     states, scores = CA.ctc_viterbi(*args)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -3655,32 +3728,33 @@ def run_ctc(db: str) -> tuple:
     states_equal = bool(torch.equal(states, want_states))
     scores_equal = bool(torch.equal(scores, want_scores))
     err = float((scores - want_scores).abs().max())
-    # every move tied (all-zero emissions) and a window of 1025 states
-    ties = [(np.zeros((t, CTC_V), np.float32), [2 + k % 27 for k in range(n)])
-            for t, n in [(1, 1), (3, 3), (300, 80), (600, 512)]]
-    tie_args = [torch.from_numpy(x).cuda() for x in CA.pack_windows(ties)]
-    got_ties = CA.ctc_viterbi(*tie_args)
-    want_ties = CA.ctc_viterbi_plain(*tie_args)
-    ties_equal = all(bool(torch.equal(a, b))
-                     for a, b in zip(got_ties, want_ties))
+    held = ctc_paths_hold(CA)
 
     t_len, s_len = packed[1].tolist(), packed[4].tolist()
     longest = int(np.argmax(t_len))
     one = [x[longest:longest + 1] for x in args]
     bound, by = ctc_bound(t_len, s_len)
     # the scan's floor: Tmax - 1 dependent steps at the latency of one,
-    # the slope of the probe (the steps with no global memory, in the
-    # block the kernel launches for Smax states) between two step counts
+    # the slope of the probe (the warp path's steps with no emission load
+    # and no move stored, in one warp of Smax states) between two step
+    # counts; the block path's probe beside it
     smax, lo, hi = max(s_len), max(t_len) - 1, 8 * (max(t_len) - 1)
-    probe_lo = time_ms(lambda: CA.viterbi_step_probe(lo, smax), fence=True)
-    probe_hi = time_ms(lambda: CA.viterbi_step_probe(hi, smax), fence=True)
-    step_ns = (probe_hi - probe_lo) / (hi - lo) * 1e6
+
+    def slope(path):
+        probe_lo = time_ms(lambda: CA.viterbi_step_probe(lo, smax, path=path),
+                           fence=True)
+        probe_hi = time_ms(lambda: CA.viterbi_step_probe(hi, smax, path=path),
+                           fence=True)
+        return (probe_hi - probe_lo) / (hi - lo) * 1e6
+
+    step_ns, block_step_ns = slope("warp"), slope("block")
     record = {
         "ms": time_ms(lambda: CA.ctc_viterbi(*args)),
         "device_ms": time_ms(lambda: CA.ctc_viterbi(*args), fence=True),
         "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": by,
         "step_ns": step_ns, "step_floor_ms": step_ns * lo * 1e-6,
+        "block_step_ns": block_step_ns,
         # the kernel's device time on the track's longest window alone
         "one_window_ms": time_ms(lambda: CA.ctc_viterbi(*one), fence=True),
         "max_abs_err": err}
@@ -3688,20 +3762,35 @@ def run_ctc(db: str) -> tuple:
     log({"run": "ctc", "windows": CTC_WINDOWS, "frames": int(sum(t_len)),
          "t_range": [min(t_len), max(t_len)],
          "s_range": [min(s_len), max(s_len)], "v": CTC_V,
-         "seconds": seconds, "launches": launches, "words": len(words),
-         "words_in_lines": n_words, "words_found": hits,
+         "seconds": seconds, "launches": launches,
+         "path_launches": path_launches, "path": geo["path"],
+         "k": geo["k"], "windows_per_block": geo["windows"],
+         "blocks": geo["blocks"],
+         "shared_bytes_per_window": geo["window_bytes"],
+         "scratch_bytes": geo["scratch_bytes"],
+         "max_memory_allocated": peak_bytes,
+         "words": len(words), "words_in_lines": n_words, "words_found": hits,
          "records_equal_cpu": records_equal, "states_equal": states_equal,
-         "scores_bit_equal": scores_equal, "ties_equal": ties_equal})
+         "scores_bit_equal": scores_equal, "held": held})
     log({"timing": "ctc_viterbi", "shape": [CTC_WINDOWS, max(t_len), CTC_V,
                                            max(s_len)], **record})
-    if launches != 1:
-        raise AssertionError(f"align_words_ctc: {launches} launches of "
-                             "ctc_viterbi, want 1")
+    if launches != 1 or path_launches != {"warp": 1, "block": 0}:
+        raise AssertionError(f"align_words_ctc: {path_launches} launches "
+                             "of ctc_viterbi, want 1 on the warp path")
     if len(words) != n_words or hits < 0.99 * n_words:
         raise AssertionError(f"align_words_ctc: {len(words)} words, "
                              f"{hits} found, of {n_words}")
-    if not (records_equal and states_equal and scores_equal and ties_equal):
+    want_paths = {"ties_warp": "warp", "ties_block": "block",
+                  "long_block": "block", "v29_4byte": "warp",
+                  "v48_bulk": "warp", "edges_smax33": "warp",
+                  "edges_smax256": "warp", "edges_smax257": "block",
+                  "v32_unaligned": "warp"}
+    if not (records_equal and states_equal and scores_equal
+            and all(ok for _, ok in held.values())):
         raise AssertionError("ctc_viterbi disagrees with its plain version")
+    if {k: p for k, (p, _) in held.items()} != \
+            {k: [p] for k, p in want_paths.items()}:
+        raise AssertionError(f"ctc_viterbi took the wrong path: {held}")
     return launches, record
 
 

@@ -12,11 +12,22 @@ transcript and hence per-word (start, end) plus a per-word acoustic score
 
 The JAX package's ops/ctc_align.py (scannertools_tpu) runs the DP as one
 jitted ``lax.scan`` per window shape (``_viterbi_fn``, :79-113). Here it
-is the hand-written CUDA kernel ``ctc_viterbi`` (kernels/csrc/ctc.cu): one
-block per window, every window of a call in one launch, so a track's
-caption windows cost one launch where a plain torch loop costs about six
-a frame. ``viterbi_plain`` beside it is that loop, step for step the JAX
-program's; the wrapper runs it for CPU tensors, and the kernel is held
+is the hand-written CUDA kernel ``ctc_viterbi`` (kernels/csrc/ctc.cu),
+every window of a call in one launch, so a track's caption windows cost
+one launch where a plain torch loop costs about six a frame. The launch
+takes one of two paths, which ``viterbi_geometry`` picks:
+
+- the warp path, for at most WARP_MAX_STATES = 256 states (a caption of
+  up to 127 characters) and a Tmax whose packed moves fit a block's
+  shared memory (about 3,500 frames at V = 32): a warp a window, its
+  alpha in registers, its moves in shared memory at 2 bits a state, no
+  device-memory scratch;
+- the block path, for up to MAX_STATES = 4096 states and any Tmax: a
+  block a window, alpha in shared memory, int8 back-pointers in a
+  [B, Tmax - 1, Smax] device-memory scratch.
+
+``viterbi_plain`` beside it is that loop, step for step the JAX
+program's; the wrapper runs it for CPU tensors, and both paths are held
 to it bit for bit on the card.
 
 The lattice: state 2i+1 emits token i, even states emit blank. A valid
@@ -42,6 +53,18 @@ from ..kernels import build as _build
 
 NEG = -1e30
 MAX_STATES = 4096  # kMaxStates in csrc/ctc.cu: 4 states a thread, 1024 threads
+# the warp path's constants, each csrc/ctc.cu's of the name in the comment
+WARP_LANES = 32  # kLanes
+WARP_MAX_K = 8  # kMaxK: states a lane
+WARP_MAX_STATES = WARP_LANES * WARP_MAX_K  # kWarpMaxStates
+MOVE_BITS = 2  # kMoveBits: 0 stay, 1 advance, 2 skip
+GROUP_STEPS = 4  # kGroupSteps: steps a lane's 64-bit word of moves
+RING_STAGES = 4  # kStages
+RING_MAX_ROWS = 8  # kMaxRows: emission rows a stage
+RING_FLOATS = 1024  # kRingFloats
+BARRIER_BYTES = 64  # kBarrierBytes
+WARP_MAX_WINDOWS = 8  # kMaxWindows: windows (warps) a block
+SHARED_MAX = 232448  # kSharedMax: a block's shared bytes on Hopper
 
 # Character vocabulary for transcript encoding (wav2vec2-style: a word
 # delimiter token separates words; blank is index 0 by convention here —
@@ -150,14 +173,69 @@ def ctc_viterbi_plain(log_probs: torch.Tensor, t_len: torch.Tensor,
 # ---------------------------------------------------------------- kernel
 
 
+def ring_rows(v: int) -> int:
+    """Emission rows a stage of the warp path's ring (``ring_rows`` in
+    csrc/ctc.cu): RING_FLOATS over the stages, in whole groups of
+    GROUP_STEPS rows: 4 or RING_MAX_ROWS = 8 rows of V floats."""
+    groups = RING_FLOATS // (RING_STAGES * GROUP_STEPS * v)
+    return GROUP_STEPS * max(1, min(RING_MAX_ROWS // GROUP_STEPS, groups))
+
+
+def window_bytes(tmax: int, v: int) -> int:
+    """A window's shared bytes on the warp path (``window_bytes`` in
+    csrc/ctc.cu): its mbarriers, the emission ring, the moves of Tmax - 1
+    steps (16 bits a lane a step, in 64-bit words of GROUP_STEPS steps)
+    and the path's byte a frame and a group past the last, rounded up to
+    128 bytes."""
+    ring = RING_STAGES * ring_rows(v) * v * 4
+    moves = -(-(tmax - 1) // GROUP_STEPS) * WARP_LANES * 8
+    path = -(-(tmax + GROUP_STEPS) // 16) * 16
+    return -(-(BARRIER_BYTES + ring + moves + path) // 128) * 128
+
+
+def viterbi_geometry(b: int, tmax: int, smax: int, v: int,
+                     aligned: bool = True) -> dict:
+    """The launch of ``ctc_viterbi`` for B windows of at most Tmax frames
+    and Smax states over V labels.
+
+    ``path`` "warp" where Smax <= WARP_MAX_STATES and a window's shared
+    bytes (``window_bytes``) fit SHARED_MAX: ``k`` states a lane
+    (ceil(Smax / 32)), ``rows`` emission rows a ring stage, ``windows`` a
+    block (as many as fit SHARED_MAX, at most WARP_MAX_WINDOWS: the
+    600-window track takes the same time at 1 to 8, tools/ctc_probe.py),
+    ``bulk`` (bulk copies where V % 4 == 0 and the emissions are
+    ``aligned`` to 16 bytes, else 4-byte copies), no scratch. Else
+    ``path`` "block": a block a window, ``scratch_bytes`` of int8
+    back-pointers."""
+    if not 2 <= smax <= MAX_STATES or tmax < 1 or v < 1 or b < 0:
+        raise ValueError(f"ctc_viterbi: B {b}, Tmax {tmax}, Smax {smax}, "
+                         f"V {v}")
+    one = window_bytes(tmax, v)
+    if smax <= WARP_MAX_STATES and one <= SHARED_MAX:
+        windows = min(WARP_MAX_WINDOWS, SHARED_MAX // one)
+        return {"path": "warp", "k": -(-smax // WARP_LANES),
+                "rows": ring_rows(v), "windows": windows,
+                "window_bytes": one, "shared_bytes": windows * one,
+                "bulk": aligned and v % 4 == 0, "blocks": -(-b // windows),
+                "scratch_bytes": 0}
+    return {"path": "block", "shared_bytes": 2 * 4 * smax, "blocks": b,
+            "scratch_bytes": b * (tmax - 1) * smax}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ctc")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.st_ctc_viterbi.restype = i
-    lib.st_ctc_viterbi.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p, p]
+    lib.st_ctc_viterbi_warp.restype = i
+    lib.st_ctc_viterbi_warp.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p,
+                                        p, p]
+    lib.st_ctc_viterbi_block.restype = i
+    lib.st_ctc_viterbi_block.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p,
+                                         p]
     lib.st_ctc_step_probe.restype = i
     lib.st_ctc_step_probe.argtypes = [i, i, p, p]
+    lib.st_ctc_block_step_probe.restype = i
+    lib.st_ctc_block_step_probe.argtypes = [i, i, p, p]
     return lib
 
 
@@ -171,10 +249,13 @@ def ctc_viterbi(log_probs: torch.Tensor, t_len: torch.Tensor,
     int32 (2..Smax). -> (states [B, Tmax] int32, -1 past a window's T;
     score [B] f32). A window's rows past its T and states past its S are
     never read. Launches the CUDA kernel for CUDA tensors, one launch for
-    the batch; ``ctc_viterbi_plain`` for CPU tensors. The lengths and
-    labels are the caller's to keep in range (``pack_windows`` checks
-    them); the kernel clamps them to its arrays, so that no input makes
-    it read or write out of bounds."""
+    the batch on the path ``viterbi_geometry`` picks (the warp path for
+    Smax <= 256 and a Tmax that fits shared memory, with no scratch; the
+    block path otherwise, with B x (Tmax - 1) x Smax bytes of scratch);
+    ``ctc_viterbi_plain`` for CPU tensors. The lengths and labels are the
+    caller's to keep in range (``pack_windows`` checks them); the kernel
+    clamps them to its arrays, so that no input makes it read or write
+    out of bounds."""
     if log_probs.device.type == "cpu":
         return ctc_viterbi_plain(log_probs, t_len, labels_ext, allow_skip,
                                  s_len)
@@ -209,41 +290,60 @@ def ctc_viterbi(log_probs: torch.Tensor, t_len: torch.Tensor,
     scores = torch.empty(b, dtype=torch.float32, device=log_probs.device)
     if b == 0:
         return states, scores
-    # back-pointers (0 stay, 1 advance, 2 skip), written once, read once
-    bps = torch.empty((b, tmax - 1, smax), dtype=torch.int8,
-                      device=log_probs.device)
-    with torch.cuda.device(log_probs.device):
+    dev = log_probs.device
+    geo = viterbi_geometry(b, tmax, smax, v, log_probs.data_ptr() % 16 == 0)
+    args = (log_probs.data_ptr(), t_len.data_ptr(), labels_ext.data_ptr(),
+            allow_skip.data_ptr(), s_len.data_ptr(), b, tmax, v, smax)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().st_ctc_viterbi(
-            log_probs.data_ptr(), t_len.data_ptr(), labels_ext.data_ptr(),
-            allow_skip.data_ptr(), s_len.data_ptr(), b, tmax, v, smax,
-            bps.data_ptr(), states.data_ptr(), scores.data_ptr(), stream)
+        if geo["path"] == "warp":
+            rc = _lib().st_ctc_viterbi_warp(
+                *args, geo["windows"], int(geo["bulk"]),
+                states.data_ptr(), scores.data_ptr(), stream)
+        else:
+            # back-pointers (0 stay, 1 advance, 2 skip), written once,
+            # read once
+            bps = torch.empty((b, tmax - 1, smax), dtype=torch.int8,
+                              device=dev)
+            rc = _lib().st_ctc_viterbi_block(
+                *args, bps.data_ptr(), states.data_ptr(), scores.data_ptr(),
+                stream)
     if rc != 0:
         raise RuntimeError(f"ctc_viterbi: CUDA launch failed with error {rc}")
     ctc_viterbi.launches += 1
+    ctc_viterbi.path_launches[geo["path"]] += 1
     return states, scores
 
 
 ctc_viterbi.launches = 0
+ctc_viterbi.path_launches = {"warp": 0, "block": 0}
 
 
-def viterbi_step_probe(steps: int, smax: int,
-                       device="cuda") -> torch.Tensor:
+def viterbi_step_probe(steps: int, smax: int, device="cuda",
+                       path: Optional[str] = None) -> torch.Tensor:
     """A probe of the scan's floor, on no path: ``steps`` dependent steps
-    of the forward recurrence over one window of ``smax`` states, in the
-    block ``ctc_viterbi`` launches for such a window, with no emission
-    load and no back-pointer store -> the last alpha [smax] f32. Timed at
-    two step counts, its slope is the latency of one step. CUDA only."""
+    of the forward recurrence over one window of ``smax`` states, with no
+    emission load and no move stored -> the last alpha [smax] f32. ``path``
+    "warp" (smax <= 256: the warp path's step, its shuffles, max and add in
+    one warp) or "block" (the block path's, a shared round trip and a
+    barrier in its block); None takes the path ``ctc_viterbi`` takes for
+    smax states. Timed at two step counts, its slope is the latency of one
+    step. CUDA only."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"viterbi_step_probe: a CUDA device, got {dev}")
-    if steps < 0 or not 2 <= smax <= MAX_STATES:
-        raise ValueError(f"viterbi_step_probe: steps {steps}, smax {smax}")
+    if path is None:
+        path = "warp" if smax <= WARP_MAX_STATES else "block"
+    top = WARP_MAX_STATES if path == "warp" else MAX_STATES
+    if steps < 0 or not 2 <= smax <= top or path not in ("warp", "block"):
+        raise ValueError(f"viterbi_step_probe: steps {steps}, smax {smax}, "
+                         f"path {path}")
     out = torch.empty(smax, dtype=torch.float32, device=dev)
+    probe = _lib().st_ctc_step_probe if path == "warp" \
+        else _lib().st_ctc_block_step_probe
     with torch.cuda.device(dev):
-        rc = _lib().st_ctc_step_probe(
-            steps, smax, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        rc = probe(steps, smax, out.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"viterbi_step_probe: CUDA launch failed with "
                            f"error {rc}")
@@ -295,8 +395,9 @@ def ctc_forced_align_batch(windows: Sequence[Tuple[np.ndarray,
     windows with tokens in one ``ctc_viterbi`` call on ``device`` (None:
     the CUDA device) -> [(token_index_per_frame [T] int32, path_score)].
     Every window is padded to the largest T and S of the call, so the
-    card holds B * Tmax * V * 4 bytes of emissions and B * (Tmax - 1) *
-    Smax bytes of back-pointers: one long window raises both for all."""
+    card holds B * Tmax * V * 4 bytes of emissions (and, on the block
+    path, B * (Tmax - 1) * Smax bytes of back-pointers): one long window
+    raises them for all."""
     out: List[Optional[tuple]] = [None] * len(windows)
     todo = []
     for i, (lp, tokens) in enumerate(windows):

@@ -2,7 +2,7 @@
 checkouts can be compared on one card, in turns.
 
     python3 scannertools_tpu_torch/tools/kernel_compare.py --tree DIR
-        [--kernels hist,nms,crop,peaks] [--frames 64] [--height 1080]
+        [--kernels hist,nms,crop,peaks,ctc] [--frames 64] [--height 1080]
         [--width 1920] [--reps 20]
 
 Imports ``scannertools_tpu_torch`` from the checkout at ``DIR`` (not from
@@ -44,7 +44,10 @@ same for every checkout. ``--kernels`` picks among:
     0.5 plateau (every pixel a peak), with the count of pixels above the
     threshold and, as ``library_ms``, the ``max_pool2d``/``topk``
     yardstick (``timing.peaks_yardstick``: the same peaks, not the same
-    function).
+    function);
+  * ``ctc``: ``ctc_viterbi`` on ``chip_smoke.py``'s caption track
+    (``timing.ctc_track`` seed 9: 600 windows, T 250-350, V 32, lines of
+    40-80 characters) and on its longest window alone.
 
 Run it on each checkout in turns (A, B, B, A) on the same card and compare
 those. Prints one JSON line with the checkout, the times and, in the same
@@ -61,9 +64,9 @@ import sys
 import numpy as np
 import torch
 
-from timing import (blob_maps, box_cloud, card, grid_sample_crops,
-                    grid_sample_level_crops, hist_frames, level_boxes,
-                    peaks_yardstick, time_ms)
+from timing import (blob_maps, box_cloud, card, ctc_track,
+                    grid_sample_crops, grid_sample_level_crops, hist_frames,
+                    level_boxes, peaks_yardstick, time_ms)
 
 NMS_CASES = (  # name, frames, K, max_out, mode, kept index
     ("cross_scale", 16, 256, 256, "union", False),
@@ -100,7 +103,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     kernels = args.kernels.split(",")
-    if not set(kernels) <= {"hist", "nms", "crop", "peaks"}:
+    if not set(kernels) <= {"hist", "nms", "crop", "peaks", "ctc"}:
         raise SystemExit(f"kernel_compare: unknown --kernels {args.kernels}")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -200,6 +203,16 @@ def main(argv=None) -> int:
                   library=peaks_yardstick(heat, PP.N_PARTS, thre,
                                           PP.MAX_PEAKS))
             del heat
+    if "ctc" in kernels:
+        from scannertools_tpu_torch.ops import ctc_align as CA
+
+        track = ctc_track(9, 600, CA.char_vocab(), (250, 350), 32, (40, 80))
+        batch = [torch.from_numpy(x).cuda() for x in CA.pack_windows(
+            [(lp, tok) for lp, _, tok in track])]
+        longest = int(batch[1].argmax())
+        one = [x[longest:longest + 1] for x in batch]
+        timed("ctc.track", lambda: CA.ctc_viterbi(*batch))
+        timed("ctc.longest", lambda: CA.ctc_viterbi(*one))
     torch.cuda.synchronize()
     res["card"] = card()
     print(json.dumps(res), flush=True)

@@ -293,3 +293,43 @@ def ctc_track(seed: int, windows: int, vocab: dict, t_range=(250, 350),
         out.append((planted_emissions(rng, tokens, t, v), line,
                     tokens.tolist()))
     return out
+
+
+# The states S of a window on the edges of the CTC kernel's warp lanes:
+# K = ceil(S / 32) states a lane changes at 32, 64, ..., 256; 257 takes
+# the block path.
+CTC_LANE_EDGES = (2, 3, 31, 32, 33, 63, 64, 65, 191, 192, 193, 255, 256, 257)
+
+
+def ctc_edge_batch(seed: int, s_values, v: int = 32, smax: int = 0,
+                   extra: int = 5):
+    """A packed batch (log_probs [B, Tmax, v] f32, t_len [B] int32,
+    labels_ext [B, Smax] int32, allow_skip [B, Smax] bool, s_len [B]
+    int32) of one window for each S of ``s_values``, padded to ``smax``
+    (0: the largest S). A window's lattice is that of S // 2 seeded
+    tokens cut to S states (an even S ends on a token state); its T is
+    the tokens' mandatory frames plus 0 .. ``extra``, its path planted."""
+    rng = np.random.default_rng(seed)
+    smax = smax or max(s_values)
+    rows = []
+    for s in s_values:
+        tokens = rng.integers(1, v, max(1, s // 2))
+        need = len(tokens) + int((tokens[1:] == tokens[:-1]).sum())
+        labels = np.zeros(2 * len(tokens) + 1, np.int32)
+        labels[1::2] = tokens
+        skip = np.zeros(len(labels), bool)
+        skip[3::2] = tokens[1:] != tokens[:-1]
+        t = need + int(rng.integers(0, extra + 1))
+        rows.append((planted_emissions(rng, tokens.tolist(), t, v),
+                     labels[:s], skip[:s]))
+    tmax = max(lp.shape[0] for lp, _, _ in rows)
+    log_probs = np.zeros((len(rows), tmax, v), np.float32)
+    labels_ext = np.zeros((len(rows), smax), np.int32)
+    allow_skip = np.zeros((len(rows), smax), bool)
+    for i, (lp, labels, skip) in enumerate(rows):
+        log_probs[i, :lp.shape[0]] = lp
+        labels_ext[i, :len(labels)] = labels
+        allow_skip[i, :len(skip)] = skip
+    t_len = np.array([lp.shape[0] for lp, _, _ in rows], np.int32)
+    s_len = np.array(list(s_values), np.int32)
+    return log_probs, t_len, labels_ext, allow_skip, s_len

@@ -344,3 +344,12 @@ def test_max_states_matches_kernel_source():
     per = int(re.search(r"kPerThread = (\d+);", src).group(1))
     threads = int(re.search(r"kMaxThreads = (\d+);", src).group(1))
     assert P.MAX_STATES == per * threads
+    # the warp path: 32 lanes of at most kMaxK states each
+    lanes = int(re.search(r"kLanes = (\d+);", src).group(1))
+    per_lane = int(re.search(r"kMaxK = (\d+);", src).group(1))
+    assert "kWarpMaxStates = kLanes * kMaxK;" in src
+    assert P.WARP_MAX_STATES == lanes * per_lane == 256
+    assert P.viterbi_geometry(1, 10, P.WARP_MAX_STATES, 32)["path"] == "warp"
+    assert P.viterbi_geometry(1, 10, P.WARP_MAX_STATES + 1,
+                              32)["path"] == "block"
+    assert P.viterbi_geometry(1, 10, P.MAX_STATES, 32)["path"] == "block"

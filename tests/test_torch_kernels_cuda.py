@@ -25,12 +25,17 @@ edges, ties and fill rows, on peaks and plateaus across the bands' edges,
 a constant plateau (every pixel a peak), maps off a 16-byte boundary
 (the 4-byte path), maps of fewer rows than the cluster has blocks, rising
 and falling ramps of peaks that refill the warps' buffers, 64 frames and
-trained-like maps; ``ctc_viterbi`` (one block a caption window) on
+trained-like maps; ``ctc_viterbi`` on both paths (a warp a caption
+window; a block a window past 256 states or past shared memory's Tmax) on
 all-zero emissions (every move ties), repeated tokens, T equal to the
-lattice's mandatory frames, a batch of windows of mixed T and S, and a
-window of 1025 states (more than a block has threads), and skip flags on
-states 0 and 1 (no state below 0 is read); the scan's floor probe against
-its recurrence. Inputs are made from a seed with numpy.
+lattice's mandatory frames, a batch of windows of mixed T and S, windows
+and batches of S on the warp lanes' edges (2-3, 31-33, 63-65, 191-193,
+255-257), a window of 1025 states (more than a block has threads), a Tmax
+past the shared-memory limit, V not a multiple of 4, V above 32 and
+emissions off a 16-byte boundary (the 4-byte ring fill), skip flags on
+states 0 and 1 (no state below 0 is read), and no scratch on the warp
+path; both paths' floor probes against their recurrence. Inputs are made
+from a seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -1046,23 +1051,32 @@ def test_detect_clothing_on_the_card(cuda_device):
 # ---------------------------------------------------------------- ctc_viterbi
 
 
-def _ctc_check(windows, device):
+def _ctc_check_packed(packed, device, path):
     """ctc_viterbi on the card against ctc_viterbi_plain on the CPU, over
-    one batch of windows: states equal, scores bit-equal."""
+    one packed batch: one launch on ``path``, states equal, scores
+    bit-equal."""
     from scannertools_tpu_torch.ops import ctc_align as CA
 
-    packed = [torch.from_numpy(x) for x in CA.pack_windows(windows)]
-    before = CA.ctc_viterbi.launches
+    packed = [torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+              for x in packed]
+    before = CA.ctc_viterbi.launches, dict(CA.ctc_viterbi.path_launches)
     states, scores = CA.ctc_viterbi(*[x.to(device) for x in packed])
     torch.cuda.synchronize()
-    assert CA.ctc_viterbi.launches == before + 1
+    assert CA.ctc_viterbi.launches == before[0] + 1
+    assert CA.ctc_viterbi.path_launches[path] == before[1][path] + 1
     want_states, want_scores = CA.ctc_viterbi_plain(*packed)
     assert torch.equal(states.cpu(), want_states)
     assert torch.equal(scores.cpu(), want_scores)
 
 
+def _ctc_check(windows, device, path="warp"):
+    from scannertools_tpu_torch.ops import ctc_align as CA
+
+    _ctc_check_packed(CA.pack_windows(windows), device, path)
+
+
 @pytest.mark.parametrize("case", ["ties", "repeats", "t_equals_need",
-                                  "mixed", "smax_1025"])
+                                  "mixed", "smax_1025", "ties_block"])
 def test_ctc_viterbi_kernel_matches_plain(cuda_device, case):
     from scannertools_tpu_torch.ops import ctc_align as CA
     from scannertools_tpu_torch.tools.timing import (ctc_track,
@@ -1070,10 +1084,15 @@ def test_ctc_viterbi_kernel_matches_plain(cuda_device, case):
 
     rng = np.random.default_rng(80)
     v = 32
-    if case == "ties":  # every move ties at every cell
+    path = "warp"
+    if case in ("ties", "ties_block"):  # every move ties at every cell
         windows = [(np.zeros((t, v), np.float32),
                     [2 + k % 29 for k in range(n)])
                    for t, n in [(1, 1), (4, 1), (3, 3), (20, 6), (300, 60)]]
+        if case == "ties_block":
+            windows.append((np.zeros((600, v), np.float32),
+                            [2 + k % 29 for k in range(512)]))
+            path = "block"
     elif case == "repeats":  # the skip barred between equal tokens
         windows = [(planted_emissions(rng, tok, t, v), tok)
                    for tok, t in [([5, 5], 3), ([5, 5, 5, 7, 7], 12),
@@ -1095,13 +1114,95 @@ def test_ctc_viterbi_kernel_matches_plain(cuda_device, case):
         windows += [(lp, tok) for lp, _, tok in ctc_track(
             82, 3, CA.char_vocab())]
         assert max(2 * len(t) + 1 for _, t in windows) == 1025
-    _ctc_check(windows, cuda_device)
+        path = "block"
+    _ctc_check(windows, cuda_device, path)
 
 
-def test_ctc_viterbi_kernel_reads_no_state_below_0(cuda_device):
+@pytest.mark.parametrize("smax", [2, 3, 31, 32, 33, 63, 64, 65, 191, 192,
+                                  193, 255, 256, 257])
+def test_ctc_viterbi_kernel_at_lane_edges(cuda_device, smax):
+    """A batch of Smax on a lane edge (K = ceil(Smax / 32) changes at
+    32, 64, ..., 256; 257 takes the block path), with a window of every
+    edge S up to Smax."""
+    from scannertools_tpu_torch.tools.timing import (CTC_LANE_EDGES,
+                                                     ctc_edge_batch)
+
+    s_values = [s for s in CTC_LANE_EDGES if s <= smax]
+    _ctc_check_packed(ctc_edge_batch(100 + smax, s_values), cuda_device,
+                      "warp" if smax <= 256 else "block")
+
+
+def test_ctc_viterbi_long_window_takes_block_path(cuda_device):
+    """A Tmax whose packed moves overflow a block's shared memory goes
+    to the block path, at few states; the longest Tmax that fits stays
+    on the warp path."""
+    from scannertools_tpu_torch.ops import ctc_align as CA
+    from scannertools_tpu_torch.tools.timing import planted_emissions
+
+    fit = max(t for t in range(3000, 4000)
+              if CA.window_bytes(t, 32) <= CA.SHARED_MAX)
+    rng = np.random.default_rng(110)
+    for tmax, path in ((fit + 1, "block"), (fit, "warp")):
+        tok = rng.integers(1, 32, 40).tolist()
+        windows = [(planted_emissions(rng, tok, tmax, 32), tok),
+                   (planted_emissions(rng, [3, 4], 9, 32), [3, 4])]
+        _ctc_check(windows, cuda_device, path)
+
+
+@pytest.mark.parametrize("v,offset", [(29, 0), (5, 0), (48, 0), (33, 0),
+                                      (512, 0), (32, 1), (32, 4)])
+def test_ctc_viterbi_ring_fills(cuda_device, v, offset):
+    """The warp path's emission ring filled by bulk copies (V % 4 == 0,
+    emissions on a 16-byte boundary) and by 4-byte copies (V % 4 != 0, or
+    emissions off the boundary: a view ``offset`` floats into a buffer),
+    at V below, on and above a warp's 32 lanes."""
+    from scannertools_tpu_torch.ops import ctc_align as CA
+    from scannertools_tpu_torch.tools.timing import ctc_edge_batch
+
+    packed = [torch.from_numpy(x) for x in ctc_edge_batch(
+        120 + v + offset, [3, 33, 81, 161, 20], v=v, extra=40)]
+    lp = packed[0]
+    buf = torch.empty(lp.numel() + offset, dtype=torch.float32,
+                      device=cuda_device)
+    view = buf[offset:].view(lp.shape)
+    view.copy_(lp.to(cuda_device))
+    geo = CA.viterbi_geometry(lp.shape[0], lp.shape[1], 161, v,
+                              aligned=view.data_ptr() % 16 == 0)
+    assert geo["bulk"] == (v % 4 == 0 and offset % 4 == 0)
+    before = CA.ctc_viterbi.launches
+    got = CA.ctc_viterbi(view, *[x.to(cuda_device) for x in packed[1:]])
+    torch.cuda.synchronize()
+    assert CA.ctc_viterbi.launches == before + 1
+    want = CA.ctc_viterbi_plain(*packed)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_ctc_viterbi_warp_path_allocates_no_scratch(cuda_device):
+    """On the warp path the call allocates its outputs and nothing else:
+    the back-pointers live in shared memory."""
+    from scannertools_tpu_torch.ops import ctc_align as CA
+    from scannertools_tpu_torch.tools.timing import ctc_track
+
+    track = ctc_track(84, 200, CA.char_vocab())
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in CA.pack_windows([(lp, tok) for lp, _, tok in track])]
+    b, tmax = args[0].shape[:2]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    states, scores = CA.ctc_viterbi(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert peak <= states.untyped_storage().nbytes() + 512 * 2 + b * 4
+
+
+@pytest.mark.parametrize("path", ["warp", "block"])
+def test_ctc_viterbi_kernel_reads_no_state_below_0(cuda_device, path):
     """allow_skip set on states 0 and 1 of every window: the kernel reads
     no alpha below state 0 and agrees with its plain version, for which
-    the flags change nothing."""
+    the flags change nothing. A window of 300 states moves the batch to
+    the block path."""
     from scannertools_tpu_torch.ops import ctc_align as CA
     from scannertools_tpu_torch.tools.timing import (ctc_track,
                                                      planted_emissions)
@@ -1111,23 +1212,33 @@ def test_ctc_viterbi_kernel_reads_no_state_below_0(cuda_device):
         83, 8, CA.char_vocab(), t_range=(3, 60), n_range=(1, 20))]
     windows.append((np.zeros((5, 32), np.float32), [4, 4]))
     windows.append((planted_emissions(rng, [7], 2, 32), [7]))
+    windows.append((planted_emissions(rng, [1], 1, 32), [1]))
+    if path == "block":
+        tok = rng.integers(1, 32, 150).tolist()
+        windows.append((planted_emissions(rng, tok, 200, 32), tok))
     packed = [torch.from_numpy(x) for x in CA.pack_windows(windows)]
     want = CA.ctc_viterbi_plain(*packed)
     packed[3][:, :2] = True
+    before = CA.ctc_viterbi.path_launches[path]
     got = CA.ctc_viterbi(*[x.to(cuda_device) for x in packed])
     torch.cuda.synchronize()
+    assert CA.ctc_viterbi.path_launches[path] == before + 1
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
 
 
-@pytest.mark.parametrize("steps,smax", [(0, 2), (1, 3), (349, 161),
-                                        (40, 1025)])
-def test_ctc_step_probe_matches_its_recurrence(cuda_device, steps, smax):
-    """The floor probe runs the forward recurrence it claims to: its last
-    alpha equals a torch loop of the same steps."""
+@pytest.mark.parametrize("steps,smax,path", [
+    (0, 2, None), (1, 3, None), (349, 161, None), (40, 1025, None),
+    (7, 2, "warp"), (33, 32, "warp"), (33, 33, "warp"), (70, 65, "warp"),
+    (300, 256, "warp"), (349, 161, "block"), (5, 3, "block")])
+def test_ctc_step_probe_matches_its_recurrence(cuda_device, steps, smax,
+                                               path):
+    """The floor probes run the forward recurrence they claim to: the
+    last alpha equals a torch loop of the same steps, on the warp path's
+    lanes (K = 1..8) and in the block path's block."""
     from scannertools_tpu_torch.ops import ctc_align as CA
 
-    got = CA.viterbi_step_probe(steps, smax, cuda_device).cpu()
+    got = CA.viterbi_step_probe(steps, smax, cuda_device, path).cpu()
     s = torch.arange(smax)
     emit = torch.where(s % 2 == 1, -0.5, -0.25).float()
     neg = torch.full((smax,), CA.NEG, dtype=torch.float32)
