@@ -195,6 +195,36 @@ job's first device chunk logged, and no warm-up may fail; and
 3 processes, rows equal to the static run's. Each phase logs its wall
 seconds.
 
+Phase 11 drives the multi-device axes on meshes of logical shards over
+the card's one device (``SCANNERTOOLS_TORCH_LOGICAL_DEVICES=8`` for the
+phase only: ``cuda:0`` eight times), each line naming its mesh. The shards
+share one H100, so the phase proves the code paths and claims no scaling.
+Data axis: phase 2's graph, RGB and I420, with
+``pipeline_instances_per_node=4``: boundaries [120, 240, 360], rows equal
+to phase 2's unsharded rows, 4 launches of the chunk's kernel a chunk,
+frames/s beside phase 2's; the executor's ``Histogram`` segment on one
+1080p 64-frame chunk over the mesh of 4 (pad, a launch a shard, gather)
+is timed beside the same segment unsharded (the same byte bound). Static multi-host: the first 4 of phase 10's jobs in two
+processes of this script (``--static-slice``, ``RANK``/``WORLD_SIZE`` 0/2
+and 1/2) into one db, the union of their rows equal to phase 10's static
+rows. Spatial: ``Blur(kernel_size=5) -> ConvertToHSV`` on 8 seeded 1080p
+frames with ``spatial_shards=4``, bit-equal to unsharded. Pipeline:
+``OpenPose`` at 640x480 on phase 7's weights with ``pipeline_stages=5``:
+the people found equal to the unpiped run's, the body maps of a chunk
+within 1e-4 of their largest value, one ``pose_peaks`` a chunk. Expert:
+``MoEHead`` (8 experts, 128-d rows) with ``expert_shards=4`` and
+``DetectClothing`` (two fixed boxes a frame of the face video) with
+``expert_shards=8``: MoEHead's routing and dropped rows equal to
+unsharded and its values within 1e-5 of the largest (a device's products
+batched over 2 experts, not 8, may add in another order), DetectClothing's
+rows equal, and the sharded MoE and heads timed beside the single-device
+forms. Tensor: ``tp_model`` of the
+gender net with a model axis of 2, within 1e-4 of the largest logit.
+Dry run: ``run_dryrun(4)``'s loss within 1e-3 of one unsharded step's,
+and the pipeline, spatial and expert goldens. Every axis it asks for must
+count as engaged and never as not engaged (the profiler's
+``axis:<name>:*`` counters); the phase must end within 120 s.
+
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
 ``{"kernels": [...]}``, the card's name and power limit from nvidia-smi,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit
@@ -1077,7 +1107,8 @@ def plain_histograms(ingest: str, device: str = "cuda"):
 
 
 def run_pipeline(db: str):
-    """-> {ingest: launches of each kernel in that run}."""
+    """-> ({ingest: launches of each kernel in that run}, {ingest: its
+    histogram rows and frames/s}, for phase 11)."""
     import torch
 
     import scannertools_tpu_torch as st
@@ -1086,7 +1117,7 @@ def run_pipeline(db: str):
     stream_cls = synthetic_stream_class(
         N_FRAMES, HEIGHT, WIDTH,
         lambda: SyntheticDecoder(N_FRAMES, HEIGHT, WIDTH))
-    launches = {}
+    launches, results = {}, {}
     for ingest in ("rgb", "i420"):
         sc = st.Client(db_path=os.path.join(db, ingest))
         video = stream_cls(sc, "video")
@@ -1129,7 +1160,8 @@ def run_pipeline(db: str):
             raise AssertionError(
                 f"{ingest}: launches {launches[ingest]}, want {expected} of "
                 f"{kernel} and none of {other}")
-    return launches
+        results[ingest] = {"rows": rows, "frames_per_s": N_FRAMES / seconds}
+    return launches, results
 
 
 # ------------------------------------------------------------ phase 3
@@ -2402,12 +2434,14 @@ def pose_graph(sc, frame, graph: str, weights_path: str):
 
 
 def run_pose_graph(db: str, weights_path: str, graph: str = "openpose",
-                   frames: int = POSE_FRAMES, runs: int = 1):
+                   frames: int = POSE_FRAMES, runs: int = 1,
+                   perf_kw=None):
     """Pose graph ``graph`` over the first ``frames`` of the pose video
     through Client.run on the card, in POSE_CHUNK-frame chunks, ``runs``
     times -> (the loaded rows, [launches of each run], [each run's
-    seconds, frames/s and span totals]). The first run reads and converts
-    the npz."""
+    seconds, frames/s, span totals and pipeline-axis counts]). The first
+    run reads and converts the npz. ``perf_kw``: more PerfParams knobs
+    (phase 11's pipeline_stages)."""
     import torch
 
     import scannertools_tpu_torch as st
@@ -2421,10 +2455,12 @@ def run_pose_graph(db: str, weights_path: str, graph: str = "openpose",
         frame = sc.streams.Gather(frame, [list(range(frames))])
     col = pose_graph(sc, frame, graph, weights_path)
     out = st.NamedStream(sc, "poses")
-    perf = st.PerfParams.manual(work_packet_size=POSE_CHUNK, ingest="rgb")
+    perf = st.PerfParams.manual(work_packet_size=POSE_CHUNK, ingest="rgb",
+                                **(perf_kw or {}))
     launches, per_run = [], []
     for _ in range(runs):
         before = sc.profiler.totals()
+        counts = sc.profiler.counts()
         _reset_pose_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2433,10 +2469,14 @@ def run_pose_graph(db: str, weights_path: str, graph: str = "openpose",
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches.append(_pose_launches())
+        after = sc.profiler.counts()
         per_run.append({
             "seconds": seconds, "frames_per_s": frames / seconds,
             "totals_s": {k: v - before.get(k, 0.0)
-                         for k, v in sc.profiler.totals().items()}})
+                         for k, v in sc.profiler.totals().items()},
+            "axis_counts": {k: after.get(f"axis:pipe:{k}", 0)
+                            - counts.get(f"axis:pipe:{k}", 0)
+                            for k in ("engaged", "not_engaged")}})
     return list(out.load()), launches, per_run
 
 
@@ -4523,8 +4563,9 @@ def run_weights_in(db: str) -> dict:
     return {"pose_peaks": pose_launches[0]["pose_peaks"], "nms": nms_launches}
 
 
-def run_job_layer(db: str) -> dict:
-    """Phase 10 -> {kernel: launches by part}; every check raises."""
+def run_job_layer(db: str) -> tuple:
+    """Phase 10 -> ({kernel: launches by part}, the static run's rows, for
+    phase 11); every check raises."""
     launches = {"weights_in": run_weights_in(db)}
     static_rows, static_launches, rss = run_static_jobs(db)
     launches["static"] = {"hist_rgb": static_launches}
@@ -4535,7 +4576,527 @@ def run_job_layer(db: str) -> dict:
     log({"rss_per_job": {"mb_after_job": rss,
                          "mb_per_job_after_the_first":
                          (later[-1] - later[0]) / max(len(later) - 1, 1)}})
+    return launches, static_rows
+
+
+# ------------------------------------------------------------ phase 11
+
+
+# phase 11: the multi-device axes on meshes of logical shards over the
+# card's one device (parallel/mesh.LOGICAL_DEVICES_ENV = MESH_DEVICES).
+# The shards share one H100, so these runs prove the code paths and claim
+# no scaling. Data axis: phase 2's graph with pipeline_instances_per_node
+# DATA_SHARDS; static multi-host: SLICE_JOBS of phase 10's jobs over two
+# processes (RANK/WORLD_SIZE); spatial: Blur(SP_BLUR_K) -> ConvertToHSV on
+# SP_FRAMES 1080p frames in chunks of SP_CHUNK; pipeline: phase 7's OpenPose
+# at 640x480 with PP_STAGES stages; expert: MoEHead (MOE_DIMS) over
+# MOE_ROWS seeded rows in chunks of MOE_CHUNK, and DetectClothing over the
+# face video's frames with EP_BOXES fixed boxes a frame; tensor: TP_NET at
+# TP_BATCH with a model axis of TP_MODEL; the dry run on DRY_DEVICES.
+MESH_DEVICES = 8
+DATA_SHARDS = 4
+SLICE_JOBS = 4
+SP_SHARDS, SP_BLUR_K, SP_FRAMES, SP_CHUNK = 4, 5, 8, 4
+PP_STAGES = 5
+EP_SHARDS_MOE, EP_SHARDS_CLOTHING = 4, 8
+MOE_ROWS, MOE_CHUNK = 256, 64
+EP_MOE_RTOL = 1e-5  # products batched over E/n experts: another order
+EP_FRAMES, EP_BOXES = 16, ((0.1, 0.1, 0.5, 0.9), (0.45, 0.2, 0.95, 0.8))
+TP_NET, TP_BATCH, TP_MODEL = "gender_levi_hassner", 16, 2
+DRY_DEVICES = 4
+DRY_RTOL = 1e-3  # bfloat16 convolutions: a data row's batch slice apart
+PHASE11_SECONDS = 120.0  # the phase's wall-time limit
+
+
+def _mesh_names(devices) -> list:
+    return [str(d) for d in devices]
+
+
+def _axes_engaged(sc, axis: str, what: str) -> dict:
+    """The profiler's counts of ``axis``; raises unless it engaged and
+    never fell back."""
+    counts = sc.profiler.counts()
+    got = {"engaged": counts.get(f"axis:{axis}:engaged", 0),
+           "not_engaged": counts.get(f"axis:{axis}:not_engaged", 0)}
+    if got["not_engaged"] or not got["engaged"]:
+        raise AssertionError(f"{what}: the {axis} axis counts {got}")
+    return got
+
+
+class NoiseDecoder(SyntheticDecoder):
+    """Seeded random RGB frames (drawn once per process), so that a blur
+    and a colour conversion have texture to work on."""
+
+    i420_supported = False
+    _drawn = {}
+
+    def read_frames(self, rows, out=None):
+        key = (self.n, self.h, self.w)
+        if key not in self._drawn:
+            self._drawn[key] = np.random.default_rng(11).integers(
+                0, 256, (self.n, self.h, self.w, 3), np.uint8)
+        data = self._drawn[key][list(rows)]
+        if out is None:
+            return data
+        out[...] = data
+        return out
+
+
+def run_data_axis(db: str, phase2: dict) -> dict:
+    """Phase 2's graph, RGB and I420, over a data mesh of DATA_SHARDS
+    logical shards -> {kernel: launches}."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.ops import histogram as H
+    from scannertools_tpu_torch.parallel.sharded import data_mesh
+
+    mesh = data_mesh(DATA_SHARDS, DEVICE).names()
+    stream_cls = synthetic_stream_class(
+        N_FRAMES, HEIGHT, WIDTH,
+        lambda: SyntheticDecoder(N_FRAMES, HEIGHT, WIDTH))
+    launches = {"hist_rgb": 0, "hist_i420": 0}
+    chunks = -(-N_FRAMES // CHUNK)
+    for ingest in ("rgb", "i420"):
+        sc = _client(os.path.join(db, f"data_{ingest}"))
+        hist = sc.ops.Histogram(frame=sc.io.Input([stream_cls(sc, "v")]))
+        bounds = sc.ops.ShotBoundaries(histograms=hist)
+        hist_out, shots_out = (st.NamedStream(sc, "hist"),
+                               st.NamedStream(sc, "shots"))
+        H.hist_rgb.launches = H.hist_i420.launches = 0
+        _sync()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output([hist, bounds], [(hist_out, shots_out)]),
+               st.PerfParams.manual(work_packet_size=CHUNK, ingest=ingest,
+                                    pipeline_instances_per_node=DATA_SHARDS),
+               cache_mode=st.CacheMode.Overwrite)
+        _sync()
+        seconds = time.perf_counter() - t0
+        got = {"hist_rgb": H.hist_rgb.launches,
+               "hist_i420": H.hist_i420.launches}
+        cuts = next(shots_out.load(rows=[0]))
+        rows = np.stack([np.stack(r) for r in hist_out.load()])
+        axes = _axes_engaged(sc, "data", f"data axis {ingest}")
+        log({"run": "data_axis", "ingest": ingest, "mesh": mesh,
+             "frames": N_FRAMES, "seconds": seconds,
+             "frames_per_s": N_FRAMES / seconds,
+             "phase2_frames_per_s": phase2[ingest]["frames_per_s"],
+             "boundaries": cuts, "launches": got, "axis_counts": axes})
+        kernel = "hist_rgb" if ingest == "rgb" else "hist_i420"
+        other = "hist_i420" if ingest == "rgb" else "hist_rgb"
+        if cuts != list(CUTS):
+            raise AssertionError(f"data axis {ingest}: boundaries {cuts}")
+        if not np.array_equal(rows, phase2[ingest]["rows"]):
+            raise AssertionError(f"data axis {ingest}: rows differ from "
+                                 "phase 2's unsharded rows")
+        if got[kernel] != DATA_SHARDS * chunks or got[other]:
+            raise AssertionError(f"data axis {ingest}: launches {got}, want "
+                                 f"{DATA_SHARDS} a chunk of {kernel}")
+        launches[kernel] += got[kernel]
     return launches
+
+
+def sharded_segment_timing(db: str) -> dict:
+    """The executor's Histogram segment on one 1080p CHUNK-frame RGB chunk
+    over a data mesh of DATA_SHARDS (the frames padded and windowed, a
+    hist_rgb launch a shard, the rows gathered on the client's device),
+    against the same segment unsharded: both through the executor's own
+    segment runner, with the same byte bound (each byte read once, the
+    rows written once)."""
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.graph import InputNode, NodeOutput, OpNode
+    from scannertools_tpu_torch.parallel.sharded import data_mesh
+    from scannertools_tpu_torch.runtime.context import OpContext
+    from scannertools_tpu_torch.runtime.executor import Executor, _Value
+    from scannertools_tpu_torch.utils.framechunk import FrameChunk
+
+    dec = NoiseDecoder(CHUNK, HEIGHT, WIDTH)
+    chunk = FrameChunk.from_hwc(dec.read_frames(range(CHUNK))).device(
+        "cuda")
+    src = InputNode([])
+    node = OpNode("Histogram", {"frame": NodeOutput(src, 0)}, {})
+    need = {src.id: (0, 0), node.id: (0, 0)}
+    ex = Executor(st.Client(db_path=os.path.join(db, "segment")))
+    ctx = OpContext(profiler=ex.profiler, device=ex.device)
+    mesh = data_mesh(DATA_SHARDS, "cuda")
+
+    def segment(m):
+        ex._mesh = m
+        values = {(src.id, 0): _Value(chunk, 0, 0, True)}
+        ex._run_device_segment([node], need, values, ctx, CHUNK)
+        return values[(node.id, 0)].data
+
+    got, want = segment(mesh), segment(None)
+    err = int((got.long() - want.long()).abs().max())
+    nbytes = CHUNK * chunk.npix
+    bound, by = bound_ms(nbytes + CHUNK * 3 * 16 * 4, nbytes)
+    rec = {"timing": "histogram_segment_sharded", "mesh": mesh.names(),
+           "shape": [CHUNK, HEIGHT, WIDTH],
+           "ms": time_ms(lambda: segment(mesh)),
+           "device_ms": time_ms(lambda: segment(mesh), fence=True),
+           "unsharded_ms": time_ms(lambda: segment(None)),
+           "unsharded_device_ms": time_ms(lambda: segment(None),
+                                          fence=True),
+           "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    log(rec)
+    if err:
+        raise AssertionError(f"the sharded Histogram segment differs from "
+                             f"the unsharded one by {err}")
+    return rec
+
+
+def static_slice_worker(db: str, device: str = "cuda") -> int:
+    """``chip_smoke.py --static-slice DB``: the first SLICE_JOBS of phase
+    10's jobs with static distribution, under this process's RANK and
+    WORLD_SIZE. Prints one JSON line: the jobs it committed and its
+    launches."""
+    global DEVICE
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.ops import histogram as H
+
+    DEVICE = device
+    sc = _client(db)
+    out, _ = job_graph(sc, "slices", range(SLICE_JOBS))
+    ran = []
+    _logging_run_job(ran.append)
+    H.hist_rgb.launches = 0
+    sc.run(out, job_perf(), cache_mode=st.CacheMode.Overwrite)
+    _sync()
+    log({"worker": "static_slice", "rank": int(os.environ["RANK"]),
+         "world_size": int(os.environ["WORLD_SIZE"]), "jobs": ran,
+         "hist_rgb": H.hist_rgb.launches})
+    return 0
+
+
+def run_static_slices(db: str, static_rows: list) -> int:
+    """Two processes (RANK 0 and 1 of WORLD_SIZE 2) over SLICE_JOBS jobs
+    into one db -> their hist_rgb launches; the union of their rows must
+    equal phase 10's static rows."""
+    import subprocess
+
+    d = os.path.join(db, "slices")
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--static-slice", d,
+             DEVICE], env=env, stdout=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+    lines = []
+    for p in procs:
+        out, _ = p.communicate(timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"static slice worker exit {p.returncode}")
+        lines.append(json.loads(out.strip().splitlines()[-1]))
+    sc = _client(d)
+    _, sinks = job_graph(sc, "slices", range(SLICE_JOBS))
+    rows = job_rows(sinks)
+    jobs = [ln["jobs"] for ln in lines]
+    per = -(-SLICE_JOBS // 2)
+    log({"run": "static_slices",
+         "mesh": _mesh_names(local_mesh_devices()[:1] * 2),
+         "workers": lines, "rows_equal_static":
+         rows == static_rows[:SLICE_JOBS]})
+    if jobs != [list(range(0, per)), list(range(per, SLICE_JOBS))]:
+        raise AssertionError(f"static slices: jobs {jobs}")
+    if rows != static_rows[:SLICE_JOBS]:
+        raise AssertionError("static slices: rows differ from phase 10's "
+                             "static run")
+    return sum(ln["hist_rgb"] for ln in lines)
+
+
+def run_spatial_axis(db: str) -> dict:
+    """Blur(SP_BLUR_K) -> ConvertToHSV at 1080p, spatial_shards=SP_SHARDS
+    against unsharded: both outputs bit-equal."""
+    import scannertools_tpu_torch as st
+
+    stream_cls = synthetic_stream_class(
+        SP_FRAMES, HEIGHT, WIDTH,
+        lambda: NoiseDecoder(SP_FRAMES, HEIGHT, WIDTH))
+    outs, per = {}, {}
+    for shards in (SP_SHARDS, 0):
+        sc = _client(os.path.join(db, f"sp{shards}"))
+        blur = sc.ops.Blur(frame=sc.io.Input([stream_cls(sc, "v")]),
+                           kernel_size=SP_BLUR_K)
+        hsv = sc.ops.ConvertToHSV(frame=blur)
+        sinks = (st.NamedStream(sc, "blur"), st.NamedStream(sc, "hsv"))
+        _sync()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output([blur, hsv], [sinks]),
+               st.PerfParams.manual(work_packet_size=SP_CHUNK, ingest="rgb",
+                                    spatial_shards=shards),
+               cache_mode=st.CacheMode.Overwrite)
+        _sync()
+        per[shards] = time.perf_counter() - t0
+        outs[shards] = [np.stack(list(s.load())) for s in sinks]
+        if shards:
+            axes = _axes_engaged(sc, "sp", "spatial axis")
+    equal = all(np.array_equal(a, b) for a, b in zip(outs[SP_SHARDS],
+                                                     outs[0]))
+    log({"run": "spatial_axis", "mesh": _mesh_names(
+        local_mesh_devices()[:SP_SHARDS]), "frames": SP_FRAMES,
+         "height": HEIGHT, "width": WIDTH, "kernel_size": SP_BLUR_K,
+         "seconds": per[SP_SHARDS], "unsharded_seconds": per[0],
+         "bit_equal": equal, "axis_counts": axes})
+    if not equal:
+        raise AssertionError("spatial axis: output differs from unsharded")
+    return {"seconds": per[SP_SHARDS], "unsharded_seconds": per[0]}
+
+
+def local_mesh_devices() -> list:
+    from scannertools_tpu_torch.parallel.mesh import local_devices
+
+    return local_devices(DEVICE)
+
+
+def _poses_close(got, want, atol: float = 1e-4) -> bool:
+    """The same people in every frame, keypoints and scores within
+    ``atol`` (maps a microbatch at a time round otherwise)."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if abs(a._score - b._score) > atol * max(1.0, abs(b._score)) or \
+                    not np.allclose(a._kp, b._kp, rtol=0, atol=atol):
+                return False
+    return True
+
+
+def run_pipeline_axis(db: str) -> dict:
+    """OpenPose at 640x480 with pipeline_stages=PP_STAGES against the
+    unpiped run on phase 7's weights: the body maps of a chunk within
+    CARD_CPU_RTOL of the largest, the people found equal."""
+    import torch
+
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.parallel.mesh import Mesh
+
+    path = write_pose_weights(db)
+    got, launches, runs = run_pose_graph(
+        os.path.join(db, "pp"), path, perf_kw={"pipeline_stages":
+                                                 PP_STAGES})
+    want, _, ref_runs = run_pose_graph(os.path.join(db, "pp_ref"), path)
+    state = {k: v.cuda() for k, v in pose_state().items()}
+    x = (pose_frames(range(POSE_CHUNK)) / 256.0 - 0.5).permute(
+        0, 3, 1, 2).contiguous()
+    mesh = Mesh(local_mesh_devices()[:PP_STAGES], ("pipe",))
+    with torch.no_grad():
+        piped = PP.body_forward_pipelined(state, x, mesh)
+        plain = PP.body_maps(state, x)
+        err = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(piped, plain))
+        ms = time_ms(lambda: PP.body_forward_pipelined(state, x, mesh),
+                     reps=3, warm=1)
+        plain_ms = time_ms(lambda: PP.body_maps(state, x), reps=3, warm=1)
+    people = _poses_close(got, want)
+    chunks = -(-POSE_FRAMES // POSE_CHUNK)
+    log({"run": "pipeline_axis", "mesh": mesh.names(), "stages": PP_STAGES,
+         "frames": POSE_FRAMES, "people_per_frame": [len(f) for f in got],
+         "people_equal": people, "maps_err_of_max": err,
+         "chunk_body_ms": ms, "chunk_body_unpiped_ms": plain_ms,
+         "seconds": runs[0]["seconds"], "unpiped_seconds":
+         ref_runs[0]["seconds"], "launches": launches[0],
+         "axis_counts": runs[0]["axis_counts"]})
+    if not err <= CARD_CPU_RTOL:
+        raise AssertionError(f"pipeline axis: maps differ by {err} of max")
+    if not people or sum(map(len, got)) == 0:
+        raise AssertionError("pipeline axis: people differ from unpiped")
+    ax = runs[0]["axis_counts"]
+    if ax["not_engaged"] or not ax["engaged"]:
+        raise AssertionError(f"pipeline axis: counts {ax}")
+    if launches[0]["pose_peaks"] != chunks:
+        raise AssertionError(f"pipeline axis: launches {launches[0]}")
+    return {"ms": ms, "plain_ms": plain_ms, **launches[0]}
+
+
+def run_expert_axis(db: str) -> dict:
+    """MoEHead with expert_shards=EP_SHARDS_MOE and DetectClothing with
+    expert_shards=EP_SHARDS_CLOTHING, each against the unsharded run:
+    MoEHead's dropped rows equal and its values within EP_MOE_RTOL of the
+    largest, DetectClothing's rows equal."""
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.models import streetstyle as SS
+    from scannertools_tpu_torch.parallel import expert as PE
+    from scannertools_tpu_torch.parallel.mesh import Mesh
+    from scannertools_tpu_torch.protobufs import BoundingBox
+
+    e, f, hdim = MOE_DIMS
+    x = np.random.default_rng(17).normal(size=(MOE_ROWS, f)).astype(
+        np.float32)
+    moe_rows, moe_s = {}, {}
+    for shards in (EP_SHARDS_MOE, 0):
+        sc = _client(os.path.join(db, f"moe{shards}"))
+        y = sc.ops.MoEHead(input=sc.io.Input([st.PythonStream(list(x))]),
+                           n_experts=e, d_model=f, d_hidden=hdim,
+                           capacity_batch=MOE_CHUNK)
+        out = st.NamedStream(sc, "moe")
+        _sync()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output(y, [out]),
+               st.PerfParams.manual(work_packet_size=MOE_CHUNK,
+                                    expert_shards=shards),
+               cache_mode=st.CacheMode.Overwrite)
+        _sync()
+        moe_s[shards] = time.perf_counter() - t0
+        moe_rows[shards] = np.stack(list(out.load()))
+        if shards:
+            moe_axes = _axes_engaged(sc, "expert", "MoEHead")
+
+    boxes = [BoundingBox(x1=a, y1=b, x2=c, y2=d, score=1.0)
+             for a, b, c, d in EP_BOXES]
+
+    @st.register_python_op(name="SmokeFixedBoxes", outputs=("object",))
+    def smoke_fixed_boxes(ctx, frames):
+        return [list(boxes) for _ in range(len(frames))]
+
+    stream_cls = synthetic_stream_class(
+        EP_FRAMES, FACE_H, FACE_W,
+        lambda: FaceDecoder(EP_FRAMES, FACE_H, FACE_W))
+    cl_rows, cl_s = {}, {}
+    for shards in (EP_SHARDS_CLOTHING, 0):
+        sc = _client(os.path.join(db, f"cl{shards}"))
+        frame = sc.io.Input([stream_cls(sc, "v")])
+        cl = sc.ops.DetectClothing(
+            frame=frame, bboxes=sc.ops.SmokeFixedBoxes(frames=frame),
+            adjust_bboxes=False)
+        out = st.NamedStream(sc, "clothing")
+        _sync()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output(cl, [out]),
+               st.PerfParams.manual(work_packet_size=FACE_CHUNK,
+                                    ingest="rgb", expert_shards=shards),
+               cache_mode=st.CacheMode.Overwrite)
+        _sync()
+        cl_s[shards] = time.perf_counter() - t0
+        cl_rows[shards] = [[r.predictions.tolist() for r in row]
+                           for row in out.load()]
+        if shards:
+            cl_axes = _axes_engaged(sc, "expert", "DetectClothing")
+
+    # the expert forms alone on one chunk, timed beside the unsharded ones
+    dev = torch.device(DEVICE)
+    state = PE.MOE.to_flax(PE.init_moe_params(0, e, f, hdim))
+    params = {k: torch.from_numpy(v).to(dev) for k, v in state.items()}
+    xt = torch.from_numpy(x[:MOE_CHUNK]).to(dev)
+    m_moe = Mesh(local_mesh_devices()[:EP_SHARDS_MOE], ("expert",))
+    m_cl = Mesh(local_mesh_devices()[:EP_SHARDS_CLOTHING], ("expert",))
+    w = torch.randn(16, SS.FEATURES, 12, device=dev) * 0.05
+    b = torch.randn(16, 12, device=dev) * 0.05
+    feat = torch.randn(FACE_CHUNK * len(EP_BOXES), SS.FEATURES, device=dev)
+    timing = {
+        "moe_ms": time_ms(lambda: PE.moe_apply(params, xt, m_moe,
+                                               capacity=2 * MOE_CHUNK // e)),
+        "moe_plain_ms": time_ms(lambda: PE.moe_reference(
+            params, xt, capacity=2 * MOE_CHUNK // e)),
+        "heads_ms": time_ms(lambda: SS.heads_apply_sharded(
+            (w, b, None), feat, m_cl)),
+        "heads_plain_ms": time_ms(lambda: SS.heads_logits((w, b, None),
+                                                          feat))}
+    dropped = [~r.any(axis=1) for r in (moe_rows[EP_SHARDS_MOE],
+                                        moe_rows[0])]
+    moe_err = float(np.abs(moe_rows[EP_SHARDS_MOE] - moe_rows[0]).max()) \
+        / float(np.abs(moe_rows[0]).max())
+    moe_close = np.array_equal(*dropped) and moe_err <= EP_MOE_RTOL
+    cl_equal = cl_rows[EP_SHARDS_CLOTHING] == cl_rows[0]
+    log({"run": "expert_axis", "moe_mesh": m_moe.names(),
+         "clothing_mesh": m_cl.names(), "moe_rows": MOE_ROWS,
+         "moe_dropped": int(dropped[1].sum()),
+         "moe_drops_equal": np.array_equal(*dropped),
+         "moe_err_of_max": moe_err,
+         "clothing_frames": EP_FRAMES, "clothing_equal": cl_equal,
+         "moe_seconds": moe_s, "clothing_seconds": cl_s,
+         "moe_axis_counts": moe_axes, "clothing_axis_counts": cl_axes,
+         **timing})
+    if not moe_close:
+        raise AssertionError(f"expert axis: MoEHead rows differ by "
+                             f"{moe_err} of the largest, or drop others")
+    if not cl_equal:
+        raise AssertionError("expert axis: DetectClothing rows differ")
+    return timing
+
+
+def run_tensor_axis() -> dict:
+    """tp_model(TP_NET) with a model axis of TP_MODEL against the plain
+    forward: outputs within CARD_CPU_RTOL of the largest value."""
+    import torch
+
+    from scannertools_tpu_torch.ops.faces import _get_params
+    from scannertools_tpu_torch.ops.nn_generic import get_model
+    from scannertools_tpu_torch.parallel import model_sharding as MS
+    from scannertools_tpu_torch.parallel.mesh import Mesh
+
+    grid = np.empty((1, TP_MODEL), dtype=object)
+    for i, d in enumerate(local_mesh_devices()[:TP_MODEL]):
+        grid[0, i] = d
+    mesh = Mesh(grid, ("data", "model"))
+    sharded, run = MS.tp_model(TP_NET, mesh)
+    model, fwd = get_model(TP_NET)
+    state = {k: v.to(DEVICE) for k, v in _get_params(model, None).items()}
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 255, (TP_BATCH, 227, 227, 3)).astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        got, want = run(x), fwd(state, x)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        rec = {"run": "tensor_axis", "mesh": mesh.names(), "net": TP_NET,
+               "batch": TP_BATCH, "split_weights": sum(
+                   isinstance(v, MS.ColumnShards) for v in sharded.values()),
+               "err_of_max": err, "ms": time_ms(lambda: run(x), reps=5),
+               "plain_ms": time_ms(lambda: fwd(state, x), reps=5)}
+    log(rec)
+    if not err <= CARD_CPU_RTOL:
+        raise AssertionError(f"tensor axis: outputs differ by {err} of max")
+    return rec
+
+
+def run_dry(db: str) -> dict:
+    """run_dryrun(DRY_DEVICES)'s loss against one unsharded step on the
+    same weights and data, and the pp/sp/ep goldens on the card."""
+    from scannertools_tpu_torch.parallel import dryrun as D
+    from scannertools_tpu_torch.parallel.mesh import make_mesh
+
+    loss = D.run_dryrun(DRY_DEVICES, device=DEVICE)
+    params = {k: v.to(DEVICE) for k, v in D.init_params(0).items()}
+    frames, labels = D._data(16, 32)
+    _, want = D.train_step(params, frames.to(DEVICE), labels.to(DEVICE))
+    D.run_pp_sp_dryrun(MESH_DEVICES, device=DEVICE)
+    rec = {"run": "dryrun", "mesh": make_mesh(DRY_DEVICES,
+                                              device=DEVICE).names(),
+           "loss": loss, "unsharded_loss": want,
+           "rel_diff": abs(loss - want) / abs(want)}
+    log(rec)
+    if not rec["rel_diff"] <= DRY_RTOL:
+        raise AssertionError(f"dry run: loss {loss} against {want}")
+    return rec
+
+
+def run_axes(db: str, phase2: dict, static_rows: list) -> dict:
+    """Phase 11 -> {"launches": {kernel: n}, "records": {...}}; every check
+    raises. The logical-device count is set for the phase only."""
+    from scannertools_tpu_torch.parallel.mesh import LOGICAL_DEVICES_ENV
+
+    before = os.environ.get(LOGICAL_DEVICES_ENV)
+    os.environ[LOGICAL_DEVICES_ENV] = str(MESH_DEVICES)
+    try:
+        launches = run_data_axis(db, phase2)
+        records = {"hist_rgb_sharded": sharded_segment_timing(db)}
+        launches["hist_rgb"] += run_static_slices(db, static_rows)
+        records["spatial"] = run_spatial_axis(db)
+        pp = run_pipeline_axis(db)
+        records["pipeline"] = pp
+        launches["pose_peaks"] = pp["pose_peaks"]
+        records["expert"] = run_expert_axis(db)
+        records["tensor"] = run_tensor_axis()
+        records["dryrun"] = run_dry(db)
+    finally:
+        if before is None:
+            os.environ.pop(LOGICAL_DEVICES_ENV, None)
+        else:
+            os.environ[LOGICAL_DEVICES_ENV] = before
+    return {"launches": launches, "records": records}
 
 
 # ------------------------------------------------------------ main
@@ -4568,7 +5129,7 @@ def main() -> int:
 
     db = tempfile.mkdtemp(prefix="chip_smoke_db_")
     try:
-        launches = phase("2: shot detection", run_pipeline, db)
+        launches, phase2 = phase("2: shot detection", run_pipeline, db)
         flow_launches = phase("3: flow", run_flow_pipeline, db)
         face_launches = phase("4: faces", run_face_pipeline, db)
         det_launches = phase("5: detection", run_detection_pipeline, db)
@@ -4578,7 +5139,13 @@ def main() -> int:
         attr_launches = phase("8: attributes", run_attribute_pipeline, db)
         rest_launches, records["ctc_viterbi"] = phase(
             "9: runners, storage, CTC", run_port_rest, db)
-        job_launches = phase("10: job layer, weights in", run_job_layer, db)
+        job_launches, static_rows = phase("10: job layer, weights in",
+                                          run_job_layer, db)
+        t11 = time.perf_counter()
+        axes = phase("11: multi-device axes", run_axes, db, phase2,
+                     static_rows)
+        if time.perf_counter() - t11 > PHASE11_SECONDS:
+            raise AssertionError(f"phase 11 took over {PHASE11_SECONDS} s")
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
@@ -4588,20 +5155,24 @@ def main() -> int:
                               "pose": pose_launches,
                               "attributes": attr_launches,
                               "runners_storage_ctc": rest_launches,
-                              "job_layer_weights_in": job_launches}})
+                              "job_layer_weights_in": job_launches,
+                              "axes": axes["launches"]}})
     job_hist = sum(v.get("hist_rgb", 0) for v in job_launches.values())
     log({"timing": "crop_and_resize", "call": "pose_gray_hands", **gray})
     kernels = [
         {"name": "hist_rgb", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/histogram.cu",
          "replaces": "scannertools_tpu/ops/histogram.py:168",
-         "launches": launches["rgb"]["hist_rgb"] + job_hist,
+         "launches": (launches["rgb"]["hist_rgb"] + job_hist
+                      + axes["launches"]["hist_rgb"]),
          **records["hist_rgb"],
          "library_ms": None},
         {"name": "hist_i420", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/histogram.cu",
          "replaces": "scannertools_tpu/ops/histogram.py:260",
-         "launches": launches["i420"]["hist_i420"], **records["hist_i420"],
+         "launches": (launches["i420"]["hist_i420"]
+                      + axes["launches"]["hist_i420"]),
+         **records["hist_i420"],
          "library_ms": None},
         {"name": "flow_update", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/flow.cu",
@@ -4635,7 +5206,8 @@ def main() -> int:
          "source": "scannertools_tpu_torch/kernels/csrc/peaks.cu",
          "replaces": "scannertools_tpu/models/pose.py:363",
          "launches": (pose_launches["pose_peaks"]
-                      + job_launches["weights_in"]["pose_peaks"]),
+                      + job_launches["weights_in"]["pose_peaks"]
+                      + axes["launches"]["pose_peaks"]),
          **records["pose_peaks"],
          "library_ms": None},
         # ctc_loss sums paths (log-sum-exp); no torch call takes the best
@@ -4657,4 +5229,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--claims-worker"]:
         sys.exit(claims_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--static-slice"]:
+        sys.exit(static_slice_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -1,10 +1,12 @@
 """scannertools_tpu_torch — the PyTorch/CUDA port of scannertools_tpu.
 
 The same public API as scannertools_tpu (pipeline graphs over sampled video
-streams, ops, named-stream storage), computed with torch on one device:
-an NVIDIA GPU by default, where the ops' kernels are hand-written CUDA
+streams, ops, named-stream storage), computed with torch on a device: an
+NVIDIA GPU by default, where the ops' kernels are hand-written CUDA
 (``kernels/csrc``), or the CPU on request, where each kernel's plain torch
-version runs instead. Stream files are byte-identical across the two
+version runs instead. The multi-device axes (``PerfParams``' data mesh,
+pipeline, spatial and expert shards) run over a mesh of the process's
+devices (``parallel/mesh.py``). Stream files are byte-identical across the two
 packages, so either reads what the other wrote.
 
 Quick start (the scannertools_tpu script with only the import changed):

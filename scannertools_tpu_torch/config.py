@@ -5,10 +5,14 @@ Reference parity: scannerpy's ``PerfParams.estimate()/manual(...)`` knobs
 ``DeviceType`` enums used throughout the reference op modules.
 
 Here ``work_packet_size`` is the frame-chunk size of one device segment
-call and ``io_packet_size`` the host decode/prefetch granularity. The port
-runs on one device: the data mesh and the pipeline, spatial and expert
-axes are not ported yet, so their knobs are absent and passing one raises
-``TypeError``. ``recycle_rss_mb`` (worker recycling) is ported.
+call and ``io_packet_size`` the host decode/prefetch granularity. The four
+multi-device knobs are the JAX package's, with its defaults and meaning:
+``pipeline_instances_per_node`` (the frame-sharded data mesh),
+``pipeline_stages``, ``spatial_shards`` and ``expert_shards`` (the
+pipeline, spatial and expert axes, each reserving devices of the run's
+``parallel/mesh.local_devices``); ``resolve()`` sizes and declines them
+by the JAX package's rules. ``recycle_rss_mb`` (worker recycling) is
+ported too.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ class PerfParams:
 
     work_packet_size: frames per device segment call.
     io_packet_size:   frames per host decode request (>= work_packet_size).
+    pipeline_instances_per_node: data-parallel lanes over the device mesh.
     prefetch_depth:   number of chunks decoded ahead of device execution.
 
     ``estimate()`` defers the choice: the executor calls ``resolve()`` per
@@ -81,6 +86,7 @@ class PerfParams:
 
     work_packet_size: int = 64
     io_packet_size: int = 256
+    pipeline_instances_per_node: int = 1
     prefetch_depth: int = 2
     auto: bool = False
     fixed: tuple = ()  # fields pinned by estimate(**overrides)
@@ -92,6 +98,30 @@ class PerfParams:
     #   "rgb"  — always decode to RGB24 on the host (bit-exact with cv2).
     #   "i420" — require the planar path (error if the source can't).
     ingest: str = "auto"
+    # Pipeline parallelism over a model's stage chain: >1 reserves that
+    # many devices as a stage pipeline; ops that declare a uniform stage
+    # chain (OpDef.stages — OpenPose's body refinement and the face/hand
+    # crop nets) run one stage per device on the GPipe schedule
+    # (parallel/pipeline_parallel.pipeline_apply_traced). 0/1 = off; -1
+    # under estimate() auto-picks the longest declared chain.
+    pipeline_stages: int = 0
+    # Spatial parallelism over each frame's row axis: >1 reserves that many
+    # devices as an 'sp' axis; ops declaring row-shardability
+    # (OpDef.sp_halo — Blur's halo, ConvertColor/ConvertToHSV/
+    # FrameDifference pointwise) split H over them and exchange halo rows
+    # (parallel/spatial). Ops fall back to the unsharded form when H does
+    # not divide (counted as the axis not engaged). 0/1 = off; -1 under
+    # estimate() auto-picks the largest count the geometry supports.
+    spatial_shards: int = 0
+    # Expert parallelism: >1 reserves that many devices as an 'expert'
+    # axis; ops declaring expert groups (OpDef.experts — MoEHead, the
+    # streetstyle attribute heads) split their group-stacked weights over
+    # them (parallel/expert.moe_apply,
+    # models/streetstyle.heads_apply_sharded) and sum or gather the
+    # shards' parts. Ops fall back to the single-device formulation when
+    # the group count does not divide the axis (counted). 0/1 = off; -1
+    # under estimate() auto-picks a dividing count.
+    expert_shards: int = 0
     # Sink encoding steering: "auto" lets the executor switch ops that
     # declare a compact sink encoding (OpDef.compact_sink) to it when their
     # output feeds ONLY sinks — fewer device->host + sink bytes for
@@ -113,29 +143,84 @@ class PerfParams:
         passed knob stays fixed (reference PerfParams.estimate analog)."""
         return cls(auto=True, fixed=tuple(sorted(overrides)), **overrides)
 
-    def resolve(self, frame_bytes: Optional[int] = None,
-                halo: int = 0) -> "PerfParams":
+    def resolve(self, frame_bytes: Optional[int] = None, halo: int = 0,
+                n_devices: int = 1, rows: int = 0,
+                declared_stages: tuple = (),
+                declared_sp_halos: tuple = (),
+                declared_experts: tuple = (),
+                total_devices: int = 1) -> "PerfParams":
         """Concrete params for one job.
 
         frame_bytes: decoded size of one element (H*W*3 for video; None for
         non-frame streams, which keep the defaults — elements are small).
         halo: extra rows each chunk decodes for temporal stencils.
+        n_devices: data-parallel mesh size (chunks are a multiple of 8
+        times it, so that shards are even).
+
+        Axis sizing — the executor passes what the GRAPH declares
+        (OpDef.sp_halo/stages/experts) plus the job's frame geometry, and
+        resolve() accepts, declines, or auto-sizes (the JAX package's
+        predicates, copied as they are):
+          * ``pipeline_stages=-1`` picks the longest declared stage chain
+            (0 when nothing declares one or devices are short); an
+            explicit value is declined to 0 when no declared chain could
+            engage it (every chain needs stages >= its length).
+          * ``spatial_shards=-1`` picks the largest device count that
+            divides the frame's rows with each local shard >= the largest
+            declared halo; explicit values are declined when no op
+            declares row-shardability or the geometry can't shard.
+          * ``expert_shards=-1`` picks the largest device count dividing
+            a declared expert-group count; explicit values are declined
+            when nothing declares experts divisible by them.
         """
         if not self.auto:
             return self
         w = self.work_packet_size
         if "work_packet_size" not in self.fixed and frame_bytes:
             w = _PACKET_BYTE_BUDGET // max(frame_bytes, 1) - halo
-            w = max(8, min(512, w - w % 8))  # a multiple of 8
+            # a multiple of 8 and of the mesh
+            m = 8 * max(1, n_devices)
+            w = max(m, min(512, w - w % m))
         io = self.io_packet_size
         if "io_packet_size" not in self.fixed:
             io = 4 * w
         depth = self.prefetch_depth
         if "prefetch_depth" not in self.fixed:
             depth = max(2, io // max(w, 1))
+
+        stages = self.pipeline_stages
+        if stages == -1:
+            best = max(declared_stages, default=0)
+            stages = best if best >= 2 and total_devices >= best else 0
+        elif stages > 1 and not any(L <= stages for L in declared_stages):
+            stages = 0  # nothing in this graph could engage the pipeline
+
+        sp = self.spatial_shards
+        sp_halo = max(declared_sp_halos, default=0)
+
+        def _sp_ok(n):
+            return (declared_sp_halos != () and rows > 0 and rows % n == 0
+                    and rows // n >= max(sp_halo, 1))
+        if sp == -1:
+            sp = next((n for n in range(total_devices, 1, -1) if _sp_ok(n)),
+                      0)
+        elif sp > 1 and not _sp_ok(sp):
+            sp = 0  # geometry/divisibility makes the requested axis a loss
+
+        ep = self.expert_shards
+        if ep == -1:
+            ep = next((n for n in range(total_devices, 1, -1)
+                       if any(E % n == 0 for E in declared_experts)), 0)
+        elif ep > 1 and not any(E % ep == 0 for E in declared_experts):
+            ep = 0
+
         return PerfParams(
             work_packet_size=w, io_packet_size=max(io, w),
+            pipeline_instances_per_node=self.pipeline_instances_per_node,
             prefetch_depth=depth, ingest=self.ingest,
+            pipeline_stages=stages,
+            spatial_shards=sp,
+            expert_shards=ep,
             sink_dtype=self.sink_dtype,
             recycle_rss_mb=self.recycle_rss_mb,
         )
@@ -145,8 +230,12 @@ class PerfParams:
         cls,
         work_packet_size: int = 64,
         io_packet_size: int = 256,
+        pipeline_instances_per_node: int = 1,
         prefetch_depth: int = 2,
         ingest: str = "auto",
+        pipeline_stages: int = 0,
+        spatial_shards: int = 0,
+        expert_shards: int = 0,
         sink_dtype: str = "auto",
         recycle_rss_mb: float = 0.0,
     ) -> "PerfParams":
@@ -154,8 +243,12 @@ class PerfParams:
         return cls(
             work_packet_size=work_packet_size,
             io_packet_size=io_packet_size,
+            pipeline_instances_per_node=pipeline_instances_per_node,
             prefetch_depth=prefetch_depth,
             ingest=ingest,
+            pipeline_stages=pipeline_stages,
+            spatial_shards=spatial_shards,
+            expert_shards=expert_shards,
             sink_dtype=sink_dtype,
             recycle_rss_mb=recycle_rss_mb,
         )

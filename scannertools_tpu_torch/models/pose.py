@@ -36,9 +36,16 @@ The JAX package's models/pose.py in torch, on NCHW maps:
     agree.
   * ``group_people``: the host grouping, copied (numpy).
 
-The pipeline-parallel forms (``body_forward_pipelined``,
-``crop_forward_pipelined`` and their stage modules) wait for the
-multi-device port.
+The pipeline-parallel forms run the uniform refinement stages (the
+body's stages 2..6, the crop nets' stages 2..6) one per device of a
+'pipe' mesh on the GPipe schedule (parallel/pipeline_parallel), frames as
+the microbatches; the front (VGG + CPM feature + stage 1) runs unsharded.
+``RefineStage``/``_CropRefineStage`` apply one stage to the packed hidden
+state (the stage's outputs, then the features), with the weights of
+``refine_stage_params``/``crop_stage_params`` (the caffe names without
+their stage number). ``PerfParams(pipeline_stages>=5)`` reaches them
+through ``OpenPoseForward``/``OpenPoseDecode`` (``infer_maps``,
+``device_stage`` and ``crop_keypoints`` take the mesh).
 """
 
 from __future__ import annotations
@@ -201,6 +208,106 @@ class OpenPoseCrop(nn.Module):
         return out
 
 
+class _BodyFront(nn.Module):
+    """OpenPoseBody's front (VGG + CPM feature + stage 1), with the body's
+    layer names, so that it applies a subset of the body's weights ->
+    (paf, heat, feat)."""
+
+    def __init__(self):
+        super().__init__()
+        _add_front(self, _VGG)
+        self.conv4_3_CPM = _conv(512, 256, 3)
+        self.conv4_4_CPM = _conv(256, 128, 3)
+        for tag, out in (("L1", N_PAF), ("L2", N_HEAT)):
+            for j in range(1, 4):
+                setattr(self, f"conv5_{j}_CPM_{tag}", _conv(128, 128, 3))
+            setattr(self, f"conv5_4_CPM_{tag}", _conv(128, 512, 1))
+            setattr(self, f"conv5_5_CPM_{tag}", _conv(512, out, 1))
+
+    _branch = OpenPoseBody._branch
+
+    def forward(self, x):
+        x = _front(self, _VGG, x)
+        x = torch.relu(self.conv4_3_CPM(x))
+        feat = torch.relu(self.conv4_4_CPM(x))
+        return self._branch(feat, 1, "L1"), self._branch(feat, 1, "L2"), feat
+
+
+class RefineStage(nn.Module):
+    """One uniform OpenPose refinement stage (the body's stages 2..6 share
+    this shape) over the packed hidden state ``[B, N_PAF + N_HEAT + 128,
+    h, w]`` (paf ++ heat ++ feat): emits the new paf and heat with feat
+    passed through, keeping the hidden shape uniform — the pipeline's
+    stage function. Its layers are ``Mconv{j}_{L1,L2}``, the body's
+    ``Mconv{j}_stage{s}_{L1,L2}`` without the stage (``refine_stage_params``)."""
+
+    def __init__(self):
+        super().__init__()
+        for tag, out in (("L1", N_PAF), ("L2", N_HEAT)):
+            for j in range(1, 6):
+                cin = N_PAF + N_HEAT + 128 if j == 1 else 128
+                setattr(self, f"Mconv{j}_{tag}", _conv(cin, 128, 7))
+            setattr(self, f"Mconv6_{tag}", _conv(128, 128, 1))
+            setattr(self, f"Mconv7_{tag}", _conv(128, out, 1))
+
+    def forward(self, h):
+        feat = h[:, N_PAF + N_HEAT:]
+        outs = []
+        for tag in ("L1", "L2"):
+            a = h
+            for j in range(1, 7):
+                a = torch.relu(getattr(self, f"Mconv{j}_{tag}")(a))
+            outs.append(getattr(self, f"Mconv7_{tag}")(a))
+        return torch.cat(outs + [feat], dim=1)
+
+
+def refine_stage_params(state, stages: int = 6) -> List[Dict]:
+    """The body's refinement stages 2..``stages`` as RefineStage weights
+    (``Mconv{j}_stage{s}_{tag}`` -> ``Mconv{j}_{tag}``), one dict a
+    stage."""
+    subs = []
+    for s in range(2, stages + 1):
+        sub = {}
+        for tag in ("L1", "L2"):
+            for j in range(1, 8):
+                for p in ("weight", "bias"):
+                    sub[f"Mconv{j}_{tag}.{p}"] = \
+                        state[f"Mconv{j}_stage{s}_{tag}.{p}"]
+        subs.append(sub)
+    return subs
+
+
+def _subset(state, cls, *init) -> Dict:
+    keys = _skeleton(cls, *init).state_dict().keys()
+    return {k: state[k] for k in keys}
+
+
+def _pipelined(front_out, stacked, stage_cls, stage_init, pipe_mesh):
+    from ..parallel.pipeline_parallel import pipeline_apply_traced
+
+    h = torch.cat(front_out, dim=1)
+    return pipeline_apply_traced(
+        lambda p, hh: apply_net(stage_cls, p, hh, init=stage_init),
+        stacked, h[:, None], pipe_mesh)[:, 0]
+
+
+def body_forward_pipelined(state, x: torch.Tensor, pipe_mesh,
+                           stages: int = 0):
+    """OpenPoseBody's forward with its refinement stages one per device of
+    ``pipe_mesh`` (a 'pipe' axis of stages - 1 devices): x [T, 3, H, W] ->
+    (heat, paf) as ``body_maps``, the frames as the GPipe microbatches. The
+    front runs unsharded (about 15% of the operations); the five 7x7
+    refinement stages dominate, and each device holds one stage's
+    weights."""
+    from ..parallel.pipeline_parallel import stack_stage_params
+
+    stages = stages or body_init(state)[0]
+    front = apply_net(_BodyFront, _subset(state, _BodyFront), x)
+    stacked = stack_stage_params(refine_stage_params(state, stages))
+    out = _pipelined(front, stacked, RefineStage, (), pipe_mesh)
+    return out[:, N_PAF:N_PAF + N_HEAT], out[:, :N_PAF]
+
+
 def body_init(state) -> Tuple[int]:
     """OpenPoseBody's constructor arguments for a state_dict: (stages,)."""
     return (sum(1 for k in state if k.endswith("_L1.weight")
@@ -290,12 +397,80 @@ HAND_NET = types.SimpleNamespace(init_params=init_hand_params,
                                  to_flax=crop_to_flax)
 
 
-def crop_keypoints(state, crops: torch.Tensor, n_kp: int) -> torch.Tensor:
+class _CropFront(nn.Module):
+    """OpenPoseCrop's front (VGG to conv5_2, conv5_3_CPM, the stage-1
+    head) with the crop net's layer names -> (out, feat)."""
+
+    def __init__(self, out_channels: int):
+        super().__init__()
+        _add_front(self, _CROP_VGG)
+        self.conv5_3_CPM = _conv(512, 128, 3)
+        self.conv6_1_CPM = _conv(128, 512, 1)
+        self.conv6_2_CPM = _conv(512, out_channels, 1)
+
+    def forward(self, x):
+        feat = torch.relu(self.conv5_3_CPM(_front(self, _CROP_VGG, x)))
+        return self.conv6_2_CPM(torch.relu(self.conv6_1_CPM(feat))), feat
+
+
+class _CropRefineStage(nn.Module):
+    """One uniform OpenPoseCrop refinement stage (stages 2..6) over the
+    packed hidden ``[B, out_channels + 128, h, w]`` (out ++ feat): emits
+    the new out with feat passed through. Layers ``Mconv{j}``
+    (``crop_stage_params``)."""
+
+    def __init__(self, out_channels: int):
+        super().__init__()
+        self.out_channels = out_channels
+        for j in range(1, 6):
+            setattr(self, f"Mconv{j}",
+                    _conv(out_channels + 128 if j == 1 else 128, 128, 7))
+        self.Mconv6 = _conv(128, 128, 1)
+        self.Mconv7 = _conv(128, out_channels, 1)
+
+    def forward(self, h):
+        a = h
+        for j in range(1, 7):
+            a = torch.relu(getattr(self, f"Mconv{j}")(a))
+        return torch.cat([self.Mconv7(a), h[:, self.out_channels:]], dim=1)
+
+
+def crop_stage_params(state, stages: int = 6) -> List[Dict]:
+    """A crop net's refinement stages 2..``stages`` as _CropRefineStage
+    weights (``Mconv{j}_stage{s}`` -> ``Mconv{j}``)."""
+    return [{f"Mconv{j}.{p}": state[f"Mconv{j}_stage{s}.{p}"]
+             for j in range(1, 8) for p in ("weight", "bias")}
+            for s in range(2, stages + 1)]
+
+
+def crop_forward_pipelined(state, x: torch.Tensor, pipe_mesh,
+                           stages: int = 0) -> torch.Tensor:
+    """OpenPoseCrop's forward with its ``stages - 1`` refinement stages one
+    per device of ``pipe_mesh`` (the crops as the microbatches; the front
+    unsharded, as ``body_forward_pipelined``): x [B, 3, H, W] -> the final
+    maps [B, out_channels, H/8, W/8]."""
+    from ..parallel.pipeline_parallel import stack_stage_params
+
+    out_channels, n = crop_init(state)
+    stages = stages or n
+    front = apply_net(_CropFront, _subset(state, _CropFront, out_channels),
+                      x, init=(out_channels,))
+    stacked = stack_stage_params(crop_stage_params(state, stages))
+    h = _pipelined(front, stacked, _CropRefineStage, (out_channels,),
+                   pipe_mesh)
+    return h[:, :out_channels]
+
+
+def crop_keypoints(state, crops: torch.Tensor, n_kp: int,
+                   pipe_mesh=None) -> torch.Tensor:
     """Single-person crops [B, H, W, 3] in [-0.5, 0.5] -> [B, n_kp, 3]: (x,
     y) crop-normalized in [0, 1] and the score, the per-channel argmax of
     the net's maps (the first index among equal values, as
-    ``jnp.argmax``); the background channel dropped."""
-    maps = crop_maps(state, crops.permute(0, 3, 1, 2))[:, :n_kp]
+    ``jnp.argmax``); the background channel dropped. ``pipe_mesh`` runs
+    the refinement stages one per device (``crop_forward_pipelined``)."""
+    x = crops.permute(0, 3, 1, 2)
+    maps = (crop_maps(state, x) if pipe_mesh is None
+            else crop_forward_pipelined(state, x, pipe_mesh))[:, :n_kp]
     b, _, mh, mw = maps.shape
     flat = maps.reshape(b, n_kp, mh * mw)
     idx = torch.argmax(flat, dim=-1)
@@ -475,12 +650,19 @@ def limb_scores(paf: torch.Tensor, peaks: torch.Tensor,
 
 # ------------------------------------------------------------ maps
 
+def _body(state, x: torch.Tensor, pipe_mesh):
+    return body_maps(state, x) if pipe_mesh is None \
+        else body_forward_pipelined(state, x, pipe_mesh)
+
+
 def infer_maps(state, x: torch.Tensor, out_hw: Tuple[int, int],
-               upsample: str = "linear"):
+               upsample: str = "linear", pipe_mesh=None):
     """x [T, 3, H, W] in [-0.5, 0.5] -> (heat [T, 19, oh, ow], paf [T, 38,
     oh, ow]): the body net's maps resized to ``out_hw`` (the CPM2
-    resized-heatmap contract), ``upsample`` "linear" or "cubic"."""
-    heat, paf = body_maps(state, x)
+    resized-heatmap contract), ``upsample`` "linear" or "cubic".
+    ``pipe_mesh`` runs the refinement stages one per device
+    (``body_forward_pipelined``)."""
+    heat, paf = _body(state, x, pipe_mesh)
     oh, ow = out_hw
     return (resize_hw(heat, 2, oh, ow, upsample),
             resize_hw(paf, 2, oh, ow, upsample))
@@ -503,7 +685,7 @@ def merge_scale_maps(maps: List[torch.Tensor], out_hw: Tuple[int, int],
 
 def device_stage(state, frames_f32: torch.Tensor,
                  scales: Tuple[float, ...] = (1.0,),
-                 upsample: str = "linear"):
+                 upsample: str = "linear", pipe_mesh=None):
     """The device side of a chunk: [T, H, W, 3] raw [0, 255] -> (peaks [T,
     18, K, 3], valid [T, 18, K], scores [T, L, K, K]). Preprocess as
     CPM2Input: / 256 - 0.5. Each scale runs the net at its own resolution
@@ -513,7 +695,7 @@ def device_stage(state, frames_f32: torch.Tensor,
     x = (div(frames_f32, 256.0) - 0.5).permute(0, 3, 1, 2).contiguous()
     _, _, h, w = x.shape
     if len(scales) == 1 and scales[0] == 1.0:
-        heat, paf = infer_maps(state, x, (h, w), upsample)
+        heat, paf = infer_maps(state, x, (h, w), upsample, pipe_mesh)
     else:
         heats, pafs = [], []
         for s in sorted(scales, reverse=True):  # largest grid first
@@ -521,7 +703,7 @@ def device_stage(state, frames_f32: torch.Tensor,
             ws = max(8, int(round(w * s)) // 8 * 8)
             xi = x if (hs, ws) == (h, w) else resize_hw(x, 2, hs, ws,
                                                          "linear")
-            hm, pf = body_maps(state, xi)
+            hm, pf = _body(state, xi, pipe_mesh)
             heats.append(hm)
             pafs.append(pf)
         heat = merge_scale_maps(heats, (h, w), upsample)

@@ -30,9 +30,11 @@ are the flax scopes (``stem1``, ``mix2.b3r``, ``head7``), in full float32
 ``stack_head_params`` lays the heads on a leading expert axis, zero-padded
 to the widest vocabulary, with a validity mask: ``heads_logits`` computes
 all heads in one product from it, and ``masked_argmax`` (padded classes
-at -inf) gives the per-head argmax. The sharded form of the heads
-(``heads_apply_sharded`` in the JAX package) waits for the multi-device
-port.
+at -inf) gives the per-head argmax. ``heads_apply_sharded`` splits the
+stacked heads one group per device of an 'expert' mesh
+(``PerfParams(expert_shards=N)`` through ``DetectClothing`` and
+``DetectHairStyle``): each device computes only its heads' products, and
+the logits are gathered on the features' device.
 """
 
 from __future__ import annotations
@@ -196,6 +198,30 @@ def heads_logits(stacked, feat: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bf,efk->bek", feat, w) + b[None]
 
 
+def heads_apply_sharded(stacked, feat: torch.Tensor, mesh,
+                        axis: str = "expert") -> torch.Tensor:
+    """Head logits [B, E, Kmax] with the E head-weight groups split
+    contiguously over ``mesh[axis]`` (E must divide it): each device
+    computes ONLY its own heads' products over the features copied to
+    it, and the logits come back concatenated on ``feat``'s device (the
+    JAX package's output resharding)."""
+    w, b, _ = stacked
+    devs = mesh.axis_devices(axis)
+    E, n = int(w.shape[0]), len(devs)
+    if E % n:
+        raise ValueError(f"{E} heads must divide mesh axis {n}")
+    per = E // n
+    parts = []
+    for d, dev in enumerate(devs):
+        sl = slice(d * per, (d + 1) * per)
+        parts.append(heads_logits(
+            (w[sl].to(dev, non_blocking=True),
+             b[sl].to(dev, non_blocking=True), None),
+            feat.to(dev, non_blocking=True)).to(feat.device,
+                                                non_blocking=True))
+    return torch.cat(parts, dim=1)
+
+
 def masked_argmax(stacked, logits: torch.Tensor) -> torch.Tensor:
     """[B, E, Kmax] logits -> [B, E] int32 argmax per head, the padded
     classes at -inf."""
@@ -203,26 +229,34 @@ def masked_argmax(stacked, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(masked, dim=-1).to(torch.int32)
 
 
-def _predict_multihead(state, crops_f32: torch.Tensor,
-                       attributes) -> torch.Tensor:
+def _predict_multihead(state, crops_f32: torch.Tensor, attributes,
+                       mesh=None) -> torch.Tensor:
     """argmax-per-attribute [B, E] int32 (the reference's per-head
     torch.max, clothing_detection.py:249-253; ``torch.argmax`` takes the
-    first of equal values, as ``jnp.argmax``)."""
-    scores, _ = forward(state, crops_f32, attributes)
-    return torch.stack([torch.argmax(s, dim=-1) for s in scores],
-                       dim=1).to(torch.int32)
+    first of equal values, as ``jnp.argmax``). ``mesh`` (an 'expert' mesh
+    or None) selects the head-sharded path: the same predictions, the
+    padded classes masked to -inf before the argmax."""
+    if mesh is None:
+        scores, _ = forward(state, crops_f32, attributes)
+        return torch.stack([torch.argmax(s, dim=-1) for s in scores],
+                           dim=1).to(torch.int32)
+    feat = forward(state, crops_f32, attributes, with_heads=False)
+    stacked = stack_head_params(state, attributes)
+    return masked_argmax(stacked, heads_apply_sharded(stacked, feat, mesh))
 
 
-def predict_clothing(state, crops_f32: torch.Tensor) -> torch.Tensor:
+def predict_clothing(state, crops_f32: torch.Tensor,
+                     mesh=None) -> torch.Tensor:
     """[B, 299, 299, 3] raw [0,255] -> [B, 16] int32 argmax per
-    attribute."""
-    return _predict_multihead(state, crops_f32, CLOTHING_ATTRIBUTES)
+    attribute; ``mesh``: an 'expert' mesh splits the 16 heads."""
+    return _predict_multihead(state, crops_f32, CLOTHING_ATTRIBUTES, mesh)
 
 
-def predict_hairstyle(state, crops_f32: torch.Tensor) -> torch.Tensor:
+def predict_hairstyle(state, crops_f32: torch.Tensor,
+                      mesh=None) -> torch.Tensor:
     """[B, 299, 299, 3] raw [0,255] -> [B, 3] int32 argmax per
     attribute."""
-    return _predict_multihead(state, crops_f32, HAIRSTYLE_ATTRIBUTES)
+    return _predict_multihead(state, crops_f32, HAIRSTYLE_ATTRIBUTES, mesh)
 
 
 # ------------------------------------------------------------ weights

@@ -21,8 +21,10 @@ INTER_LINEAR resize samples by another convention than the crop kernel,
 so they stay where the JAX package cuts them); every crop of the chunk
 then goes to the run's device in one copy, through the classifier in one
 forward, and its predictions come back in one copy. The trunk lives in
-``models/streetstyle.py``. The expert-sharded heads (``experts=`` and the
-``expert`` mesh) wait for the multi-device port.
+``models/streetstyle.py``. Both classifiers declare their heads as
+experts (``experts=``): under ``PerfParams(expert_shards=N)`` the heads
+split over the reserved 'expert' devices
+(``models/streetstyle.heads_apply_sharded``).
 """
 
 from __future__ import annotations
@@ -168,10 +170,11 @@ def prepare_clothing_bbox(ctx, frame, bboxes):
 
 
 def _classify(ctx, frame, bboxes, model: str, predict, record_cls,
-              weights_path, crop_fn):
+              weights_path, crop_fn, mesh=None):
     """Every box's crop on the host; all crops of the chunk to the run's
-    device in one copy, ``predict`` over them in one forward, the
-    predictions back in one copy -> per-frame records."""
+    device in one copy, ``predict`` over them in one forward (its heads
+    split over ``mesh`` when given), the predictions back in one copy ->
+    per-frame records."""
     frames = _to_f32_frames(frame)
     crops, src, out = _host_crops(frames, bboxes, crop_fn)
     n_attrs = len(record_cls.attributes)
@@ -181,7 +184,8 @@ def _classify(ctx, frame, bboxes, model: str, predict, record_cls,
     if crops is not None:
         device = _run_device(ctx)
         preds = predict(_device_state(model, weights_path, device),
-                        torch.from_numpy(crops).to(device)).cpu().numpy()
+                        torch.from_numpy(crops).to(device),
+                        mesh=mesh).cpu().numpy()
         for p, (i, j) in zip(preds, src):
             out[i][j] = record_cls(predictions=p.astype(np.int32))
     return out
@@ -191,18 +195,27 @@ def clothing_crop(frame: np.ndarray, bbox) -> Optional[np.ndarray]:
     return _crop_resize_host(frame, bbox, INPUT_SIZE)
 
 
-@register_op("DetectClothing", kind="host", outputs=("object",))
+@register_op("DetectClothing", kind="host", outputs=("object",),
+             experts=lambda p: len(CLOTHING_ATTRIBUTES))
 def detect_clothing(ctx, frame, bboxes, adjust_bboxes: bool = True,
                     weights_path: Optional[str] = None):
     """Multi-head clothing attributes per person box
     (old/clothing_detection.py:212-260). ``adjust_bboxes`` applies
     PrepareClothingBbox first, as the reference pipeline does
-    (clothing_detection.py:291-297)."""
+    (clothing_detection.py:291-297).
+
+    Under ``PerfParams(expert_shards=N)`` the 16 attribute heads split one
+    group per reserved device (experts = attribute heads;
+    models/streetstyle.heads_apply_sharded)."""
     if adjust_bboxes:
         bboxes = prepare_clothing_bbox(ctx, frame, bboxes)
+    # a caller outside an executor passes None or any object with a
+    # ``device`` (no reserved axes)
+    mesh = ctx.ep_mesh(len(CLOTHING_ATTRIBUTES)) \
+        if hasattr(ctx, "ep_mesh") else None
     return _classify(ctx, frame, bboxes, "streetstyle_clothing",
                      streetstyle.predict_clothing, Clothing, weights_path,
-                     clothing_crop)
+                     clothing_crop, mesh=mesh)
 
 
 def _hair_crop(frame: np.ndarray, bbox):
@@ -225,11 +238,15 @@ def _hair_crop(frame: np.ndarray, bbox):
     return cv2.resize(crop, (INPUT_SIZE, INPUT_SIZE))
 
 
-@register_op("DetectHairStyle", kind="host", outputs=("object",))
+@register_op("DetectHairStyle", kind="host", outputs=("object",),
+             experts=lambda p: len(HAIRSTYLE_ATTRIBUTES))
 def detect_hairstyle(ctx, frame, bboxes,
                      weights_path: Optional[str] = None):
     """3-head hair attributes per face box
-    (old/hairstyle_detection.py:56-120)."""
+    (old/hairstyle_detection.py:56-120). The 3 heads split over the
+    'expert' mesh under expert_shards like DetectClothing."""
+    mesh = ctx.ep_mesh(len(HAIRSTYLE_ATTRIBUTES)) \
+        if hasattr(ctx, "ep_mesh") else None
     return _classify(ctx, frame, bboxes, "streetstyle_hairstyle",
                      streetstyle.predict_hairstyle, HairStyle, weights_path,
-                     _hair_crop)
+                     _hair_crop, mesh=mesh)

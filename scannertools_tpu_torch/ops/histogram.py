@@ -22,6 +22,14 @@ to on the card. There is no fallback from a CUDA tensor to a plain version.
 The kernels' launch geometry is computed here (``rgb_geometry``,
 ``i420_geometry``), from the resident blocks the card reports, and passed
 to them; the CPU tests check that it covers every byte once.
+
+On a frame-sharded data mesh (``PerfParams(pipeline_instances_per_node)``,
+the JAX package's ``_histogram_pallas_sharded``: its ``pallas_call`` under
+``shard_map``) each shard histograms its own frames on its own device with
+the same kernel, and no collective: frames are independent. The executor
+pads the chunk to a multiple of the mesh, runs the op once a shard with
+``utils/flags.sharded_mode`` set, and gathers the rows, cut back to the
+chunk's (runtime/executor.py, ``_run_sharded_segment``).
 """
 
 from __future__ import annotations
@@ -308,13 +316,29 @@ hist_i420.launches = 0
 # ---------------------------------------------------------------- op
 
 
-@register_op("Histogram", kind="device", outputs=("histogram",))
+@register_op("Histogram", kind="device", outputs=("histogram",),
+             row_local=True)
 def histogram(ctx, frames, bins: int = BINS):
     """frames: FrameChunk (rgb or i420) or a [T, H, W, C] u8 tensor ->
-    [T, C, 16] int32 on the frames' device."""
+    [T, C, 16] int32 on the frames' device. Under ``sharded_mode`` the
+    frames are one shard's, on a device of the data mesh."""
+    from ..utils.flags import current_mesh, sharded_mode
+
     if bins != BINS:
         raise ValueError(
             "reference fixes 16 bins (histogram_kernel_cpu.cpp:8)")
+    mesh = current_mesh.get()
+    if sharded_mode.get() and mesh is not None:
+        dev = frames.flat.device if isinstance(frames, FrameChunk) \
+            else torch.as_tensor(frames).device
+        if dev not in mesh.device_list():
+            raise ValueError(f"Histogram: a shard on {dev}, off the data "
+                             f"mesh {mesh.names()}")
+    return _histogram_local(frames)
+
+
+def _histogram_local(frames) -> torch.Tensor:
+    """One launch of the chunk's kernel on the frames' device."""
     if not isinstance(frames, FrameChunk):
         x = torch.as_tensor(frames)
         return hist_rgb(x, int(np.prod(x.shape[1:])), int(x.shape[-1]))

@@ -90,7 +90,7 @@ def resize_shape(h: int, w: int, width: int = 0, height: int = 0,
     return th, tw
 
 
-@register_op("Resize", kind="device", outputs=("frame",))
+@register_op("Resize", kind="device", outputs=("frame",), row_local=True)
 def resize(ctx, frame, width: int = 0, height: int = 0,
            preserve_aspect: bool = False, min: bool = False,
            interpolation: str = "INTER_LINEAR"):
@@ -119,15 +119,58 @@ def _box1d(a, axis, lo, hi):
     return upper - lower
 
 
-@register_op("Blur", kind="device", outputs=("frame",))
+def _box1d_same(a, axis, lo, hi):
+    """SAME-padded window sums: output[i] = sum a[i-lo .. i+hi], zeros
+    outside — row-count preserving (the spatially-sharded formulation)."""
+    pad = [0, 0] * (a.dim() - 1 - axis) + [lo, hi]
+    return _box1d(torch.nn.functional.pad(a, pad), axis, lo, hi)
+
+
+def _blur_sp_halo(params: dict):
+    k = int(params.get("kernel_size", 3))
+    return max(k // 2, k - k // 2 - 1)
+
+
+@register_op("Blur", kind="device", outputs=("frame",),
+             sp_halo=_blur_sp_halo, row_local=True)
 def blur(ctx, frame, kernel_size: int = 3, sigma: float = 0.0):
     """Box blur, integer mean over a kernel_size² window, interior pixels
     only (blur_kernel_cpu.cpp:62-79: value / k² in integer arithmetic).
-    Implemented as a separable prefix-sum filter: O(1) per pixel."""
+    Implemented as a separable prefix-sum filter: O(1) per pixel.
+
+    Under ``PerfParams(spatial_shards=N)`` the frame's row axis is sharded
+    over the reserved 'sp' mesh devices with a one-hop halo exchange
+    (parallel/spatial.spatial_apply_traced), and the result is
+    bit-identical to the unsharded path (all window sums are exact u8
+    integer sums in f32)."""
     x = _as_u8_hwc(frame)  # f32
     k = int(kernel_size)
     left = k // 2
     right = k - k // 2 - 1
+    t, h, w, c = x.shape
+
+    halo = max(left, right)
+    mesh = ctx.sp_mesh(h, halo) if ctx is not None else None
+    if mesh is not None and halo > 0:
+        from ..parallel.spatial import spatial_apply_traced
+
+        def body(padded, gidx):
+            # padded [t, local+2*halo, w, c]; gidx = global row index of
+            # each padded row (<0 / >=h outside the image)
+            inside = ((gidx >= 0) & (gidx < h)).to(padded.dtype)
+            xm = padded * inside[None, :, None, None]
+            sums = _box1d_same(_box1d_same(xm, 1, left, right),
+                               2, left, right)
+            mean = torch.floor(_div(sums, float(k * k)))
+            col = torch.arange(w, device=padded.device)
+            in_col = (col >= left) & (col < w - right)
+            in_row = (gidx >= left) & (gidx < h - right)
+            m = in_row[None, :, None, None] & in_col[None, None, :, None]
+            # interior pixels get the mean; borders keep original pixels
+            return torch.where(m, mean, xm).to(torch.uint8)
+
+        return spatial_apply_traced(body, x, halo, mesh)
+
     sums = _box1d(_box1d(x, 1, left, right), 2, left, right)
     mean = torch.floor(_div(sums, float(k * k)))  # integer division
     # paste the interior over a copy of the input (the reference leaves
@@ -194,15 +237,30 @@ _DEVICE_CONVERSIONS = {
 }
 
 
-@register_op("ConvertColor", kind="device", outputs=("frame",))
+def _pointwise(ctx, fn, x):
+    """``fn(x)``, row-sharded over the 'sp' mesh under
+    ``PerfParams(spatial_shards=N)`` (halo 0, bit-identical —
+    parallel/spatial.spatial_apply_pointwise)."""
+    # ctx is None when an op is called directly, outside an executor
+    mesh = ctx.sp_mesh(x.shape[1]) if ctx is not None else None
+    if mesh is not None:
+        from ..parallel.spatial import spatial_apply_pointwise
+
+        return spatial_apply_pointwise(fn, x, mesh)
+    return fn(x)
+
+
+@register_op("ConvertColor", kind="device", outputs=("frame",),
+             sp_halo=lambda p: 0, row_local=True)
 def convert_color(ctx, frame, conversion: str = "COLOR_RGB2GRAY"):
+    """Per-pixel, so row-pointwise under spatial_shards."""
     x = _as_u8_hwc(frame)
     if conversion not in _DEVICE_CONVERSIONS:
         raise ValueError(
             f"ConvertColor: {conversion} has no device implementation; "
             "use ConvertColorHost for exotic cv2 codes"
         )
-    return _DEVICE_CONVERSIONS[conversion](x)
+    return _pointwise(ctx, _DEVICE_CONVERSIONS[conversion], x)
 
 
 @register_op("ConvertColorHost", kind="host", outputs=("frame",))
@@ -219,22 +277,25 @@ def convert_color_host(ctx, frames, conversion: str = "COLOR_RGB2GRAY"):
     return out
 
 
-@register_op("ConvertToHSV", kind="device", outputs=("frame",))
+@register_op("ConvertToHSV", kind="device", outputs=("frame",),
+             sp_halo=lambda p: 0, row_local=True)
 def convert_to_hsv(ctx, frame):
     """old/imgproc.py:40 — cv2.cvtColor(frame, COLOR_RGB2HSV)."""
-    return _rgb2hsv_u8(_as_u8_hwc(frame))
+    return _pointwise(ctx, _rgb2hsv_u8, _as_u8_hwc(frame))
 
 
 # ------------------------------------------------------------ FrameDifference
 
 @register_op("FrameDifference", kind="device", stencil=(-1, 0),
-             outputs=("frame",))
+             outputs=("frame",), sp_halo=lambda p: 0, row_local=True)
 def frame_difference(ctx, frames):
     """|frame[i] - frame[i-1]| per pixel (fixed version of the reference's
     dead frame_difference_kernel_cpu.cpp). First frame diffs against itself
-    (stream-edge clamp) -> zeros."""
+    (stream-edge clamp) -> zeros. The temporal stencil is row-pointwise in
+    H, so rows shard over the 'sp' mesh under spatial_shards (halo 0)."""
     x = _as_u8_hwc(frames)  # [T+1, H, W, C] with 1-frame leading halo
-    return torch.abs(x[1:] - x[:-1]).to(torch.uint8)
+    return _pointwise(ctx, lambda a: torch.abs(a[1:] - a[:-1]).to(
+        torch.uint8), x)
 
 
 # ------------------------------------------------- Brightness/Contrast/Sharp
@@ -299,7 +360,8 @@ def sharpness_bbox(ctx, frames, bboxes):
 
 # ------------------------------------------------------------- FlowHistogram
 
-@register_op("FlowHistogram", kind="device", outputs=("array_i32",))
+@register_op("FlowHistogram", kind="device", outputs=("array_i32",),
+             row_local=True)
 def flow_histogram(ctx, flow, bins: int = 64):
     """[T,H,W,2] flow -> [T,2,64] int32: magnitude histogram over [0,64) and
     angle (degrees) over [0,360); out-of-range values are excluded, matching

@@ -21,7 +21,7 @@ def pass_op(ctx, elements):
     return elements
 
 
-@register_op("PassFrame", kind="device", outputs=("frame",))
+@register_op("PassFrame", kind="device", outputs=("frame",), row_local=True)
 def pass_frame(ctx, frames):
     return frames
 

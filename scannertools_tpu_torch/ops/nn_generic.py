@@ -13,8 +13,9 @@ analog of caffe prototxt paths in ``NetDescriptor.model_path``), each name
 mapped to the forward the JAX registry names, with the JAX package's
 inputs and outputs (NHWC); preprocessing is a device op.
 
-``MoEHead`` runs on one device (``parallel/expert.moe_reference``); its
-expert-sharded form waits for the multi-device port.
+``MoEHead`` runs on one device (``parallel/expert.moe_reference``), or
+with its experts split over the reserved 'expert' devices under
+``PerfParams(expert_shards=N)`` (``parallel/expert.moe_apply``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 
 from ..models import (facenet, facenet_detector, faster_rcnn, gender, pose,
                       ssd, streetstyle)
-from ..parallel.expert import capacity_for, moe_reference
+from ..parallel.expert import capacity_for, moe_apply, moe_reference
 from ..registry import register_op
 from ..utils.framechunk import as_hwc_f32
 from ..utils.net_descriptor import NetDescriptor
@@ -136,7 +137,8 @@ def _moe_aux(ctx, params):
     return _get_params("moe", params.get("weights_path"), _moe_dims(params))
 
 
-@register_op("MoEHead", kind="device", aux=_moe_aux, outputs=("array_f32",))
+@register_op("MoEHead", kind="device", aux=_moe_aux, outputs=("array_f32",),
+             experts=lambda p: int(p.get("n_experts", 8)))
 def moe_head(ctx, aux, input, n_experts: int = 8, d_model: int = 0,
              d_hidden: int = 256, capacity_factor: float = 2.0,
              capacity_batch: int = 0,
@@ -150,7 +152,15 @@ def moe_head(ctx, aux, input, n_experts: int = 8, d_model: int = 0,
     (a zero row). ``capacity_batch > 0`` sizes the capacity from that
     fixed batch, max(1, int(capacity_factor * capacity_batch /
     n_experts)), so that what is dropped does not depend on the chunk's
-    length; 0 sizes it from the chunk's rows."""
+    length; 0 sizes it from the chunk's rows.
+
+    Under ``PerfParams(expert_shards=N)`` the expert-stacked weights split
+    one group per reserved device and the devices' partial outputs are
+    summed (parallel/expert.moe_apply); otherwise — or when
+    n_experts doesn't divide the axis — the single-device formulation
+    runs, with identical routing, capacity and drop semantics. A token's
+    slot is its rank among the chunk's tokens, so the op couples a
+    chunk's rows (not ``row_local``: the data mesh does not split it)."""
     x = as_hwc_f32(input)  # FrameChunk or plain array -> f32
     x = x.reshape(x.shape[0], -1)
     if x.shape[1] != int(d_model):
@@ -159,6 +169,11 @@ def moe_head(ctx, aux, input, n_experts: int = 8, d_model: int = 0,
             f"{x.shape[1]} features")
     cap = capacity_for(capacity_batch, n_experts, capacity_factor) \
         if capacity_batch > 0 else 0
+    # ctx is None when the op is called directly, outside an executor
+    mesh = ctx.ep_mesh(n_experts) if ctx is not None else None
+    if mesh is not None:
+        return moe_apply(aux, x, mesh, capacity_factor=capacity_factor,
+                         capacity=cap)
     return moe_reference(aux, x, capacity_factor=capacity_factor,
                          capacity=cap)
 

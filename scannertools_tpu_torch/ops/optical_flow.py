@@ -428,7 +428,7 @@ def farneback_pairs(
 
 
 @register_op("OpticalFlow", kind="device", stencil=(0, 1), outputs=("flow",),
-             compact_sink="out_dtype")
+             compact_sink="out_dtype", row_local=True)
 def optical_flow(ctx, frames, levels: int = 3, pyr_scale: float = 0.5,
                  win_size: int = 15, iters: int = 3, poly_n: int = 5,
                  poly_sigma: float = 1.2, warp_px: int = 16,

@@ -210,14 +210,16 @@ def crop_batch(frames: torch.Tensor, items: torch.Tensor,
 
 
 def _run_crop_net(tag: str, weights_path, n_kp: int, frames: torch.Tensor,
-                  items: List, size: int) -> np.ndarray:
+                  items: List, size: int, pipe_mesh=None) -> np.ndarray:
     """The crops of ``items`` cut from the chunk's frames on their device,
     and the crop net ``tag`` over them in one call -> [len(items), n_kp,
-    3] crop-normalized keypoints (numpy)."""
+    3] crop-normalized keypoints (numpy). ``pipe_mesh`` runs the net's
+    refinement stages one per device (models/pose.crop_forward_pipelined)."""
     state = _device_state(tag, weights_path, frames.device)
     it = torch.as_tensor(np.asarray(items, np.float32), device=frames.device)
     crops = crop_batch(frames, it, size)
-    return pose_lib.crop_keypoints(state, crops, n_kp).cpu().numpy()
+    return pose_lib.crop_keypoints(state, crops, n_kp,
+                                   pipe_mesh=pipe_mesh).cpu().numpy()
 
 
 def _write_back(kp_full: np.ndarray, slot: int, n_kp: int, box,
@@ -251,7 +253,8 @@ def _openpose_aux(ctx, params):
 
 
 @register_op("OpenPoseForward", kind="device", aux=_openpose_aux,
-             outputs=("array_f32", "array_i32", "array_f32", "array_i32"))
+             outputs=("array_f32", "array_i32", "array_f32", "array_i32"),
+             stages=lambda p: 5)
 def openpose_forward(ctx, aux, frame, weights_path: Optional[str] = None,
                      pose_num_scales: int = 1, pose_scale_gap: float = 0.1,
                      pose_upsample: str = "linear"):
@@ -271,15 +274,21 @@ def openpose_forward(ctx, aux, frame, weights_path: Optional[str] = None,
     scales = tuple(
         max(0.1, 1.0 - i * pose_scale_gap) for i in range(pose_num_scales)
     )
+    # PerfParams(pipeline_stages>=5) runs the 5 uniform refinement stages
+    # one per device (models/pose.body_forward_pipelined)
+    pipe_mesh = ctx.pipe_mesh(5) if ctx is not None else None
     peaks, valid, scores = pose_lib.device_stage(aux, x, scales,
-                                                 upsample=pose_upsample)
+                                                 upsample=pose_upsample,
+                                                 pipe_mesh=pipe_mesh)
     dims = torch.tensor([[h, w]], dtype=torch.int32,
                         device=x.device).repeat(t, 1)
     return peaks, valid, scores, dims
 
 
 @register_op("OpenPoseDecode", kind="host", outputs=("pose_list",),
-             device_inputs=True)
+             device_inputs=True,
+             stages=lambda p: 5 if (p.get("compute_face")
+                                    or p.get("compute_hands")) else 0)
 def openpose_decode(ctx, peaks, valid, scores, dims, frame=None,
                     compute_face: bool = False, compute_hands: bool = False,
                     face_weights_path: Optional[str] = None,
@@ -339,17 +348,22 @@ def openpose_decode(ctx, peaks, valid, scores, dims, frame=None,
                             hand_items.append((p, slot, hb, i))
         if face_items or hand_items:
             frames = _on_device(ctx, frame)
+        # the crop nets' 5 uniform refinement stages run one per device
+        # under PerfParams(pipeline_stages>=5), like the body network
+        pipe_mesh = ctx.pipe_mesh(5) if (face_items or hand_items) and \
+            ctx is not None else None
         if face_items:
             kps = _run_crop_net(
                 "openpose_face", face_weights_path, FK, frames,
-                [(i, *box) for _, box, i in face_items], crop_net_size)
+                [(i, *box) for _, box, i in face_items], crop_net_size,
+                pipe_mesh)
             for (p, box, _), ckp in zip(face_items, kps):
                 _write_back(p._kp, face_slot, FK, box, ckp)
         if hand_items:
             kps = _run_crop_net(
                 "openpose_hand", hand_weights_path, HK, frames,
                 [(i, *box[:4]) for _, _, box, i in hand_items],
-                crop_net_size)
+                crop_net_size, pipe_mesh)
             for (p, slot, box, _), ckp in zip(hand_items, kps):
                 _write_back(p._kp, slot, HK, box, ckp)
     return out

@@ -1,23 +1,31 @@
-"""A routed mixture-of-experts layer: its single-device parts.
+"""Expert parallelism (ep): a routed mixture-of-experts layer, on one
+device or one expert group per device over an ``expert`` mesh axis.
 
 The reference has nothing like this (its nets are fixed per-frame CNNs,
 SURVEY §2j); the JAX package (scannertools_tpu's parallel/expert.py) adds
-it for conditional-compute heads over face/pose embeddings, sharded one
-expert group per chip over an ``expert`` mesh axis. This module is its
-single-device part, with the same routing, capacity and drop semantics:
+it for conditional-compute heads over face/pose embeddings. The
+computation, with the same routing, capacity and drop semantics on one
+device or many:
 
   * top-1 routing produces a one-hot dispatch mask [T, E];
   * tokens are dispatched to per-expert slots with a capacity bound C,
     their position the token's rank among that expert's tokens (a float
     cumulative sum, as the JAX package computes it), giving a dense [E, C,
     F] batch;
-  * each expert's two-layer FFN runs as one batched product, and the
-    combine is the transposed dispatch product.
+  * each expert's two-layer FFN runs over its slots (two products batched
+    over the experts), and the combine is the transposed dispatch
+    product.
 
 Tokens over capacity are DROPPED (their combine weight is zero). The
 products are ``torch.einsum``, as the JAX package computes them outside
-any Pallas kernel. The sharded forms (``moe_apply``,
-``moe_apply_traced``) wait for the multi-device port.
+any Pallas kernel. Sharded (``moe_apply``): the
+routing runs once on the input's device, each device of the axis holds
+E/n experts and runs their FFN over its ``[E/n, C, F]`` slots, and the
+combine is the sum of the devices' partial outputs on the input's device
+(the JAX package's ``psum``). Under top-1 routing a token's output is one
+slot's, so the partial sums add exact zeros; the routing and the dropped
+rows are the same as on one device, and the values agree to within the
+order in which a batched product over E/n experts (not E) may add.
 """
 
 from __future__ import annotations
@@ -91,9 +99,52 @@ def moe_reference(params: Dict[str, torch.Tensor], x: torch.Tensor,
     combine = _dispatch_mask(logits, capacity)                  # [T, E, C]
     dispatched = torch.einsum("tec,tf->ecf",
                               (combine > 0).to(x.dtype), x)     # [E, C, F]
-    h = torch.relu(torch.einsum("ecf,efh->ech", dispatched, params["w1"]))
-    y = torch.einsum("ech,ehf->ecf", h, params["w2"])
+    y = _expert_ffn(dispatched, params["w1"], params["w2"])
     return torch.einsum("tec,ecf->tf", combine, y)
+
+
+def _expert_ffn(dispatched: torch.Tensor, w1: torch.Tensor,
+                w2: torch.Tensor) -> torch.Tensor:
+    """Each expert's two-layer FFN over its [C, F] slots -> [E, C, F], as
+    two products batched over the experts."""
+    h = torch.relu(torch.einsum("ecf,efh->ech", dispatched, w1))
+    return torch.einsum("ech,ehf->ecf", h, w2)
+
+
+def moe_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              mesh, axis: str = "expert", capacity_factor: float = 2.0,
+              capacity: int = 0) -> torch.Tensor:
+    """Expert-parallel top-1 MoE FFN: ``x`` [T, F] -> [T, F] on ``x``'s
+    device. Each device of ``mesh[axis]`` takes its contiguous E/n experts'
+    weights and runs their FFN over its ``[E/n, C, F]`` slots; the router
+    stays on ``x``'s device and the partial outputs are summed there.
+    Identical routing, capacity and drop semantics to ``moe_reference``.
+    One function stands for the JAX package's ``moe_apply`` (jitted) and
+    ``moe_apply_traced`` (inside a jitted segment), and its ``_moe_body``:
+    nothing here is traced."""
+    E = int(params["w1"].shape[0])
+    devs = mesh.axis_devices(axis)
+    n = len(devs)
+    if E % n != 0:
+        raise ValueError(f"n_experts={E} must divide mesh axis {n}")
+    if capacity <= 0:
+        capacity = capacity_for(int(x.shape[0]), E, capacity_factor)
+    e_local = E // n
+    combine = _dispatch_mask(x @ params["router"].to(x.device), capacity)
+    out = None
+    for d, dev in enumerate(devs):
+        sl = slice(d * e_local, (d + 1) * e_local)
+        mine = combine[:, sl].to(dev, non_blocking=True)       # [T, e, C]
+        xd = x.to(dev, non_blocking=True)
+        dispatched = torch.einsum("tec,tf->ecf", (mine > 0).to(xd.dtype),
+                                  xd)                           # [e, C, F]
+        y = _expert_ffn(dispatched,
+                        params["w1"][sl].to(dev, non_blocking=True),
+                        params["w2"][sl].to(dev, non_blocking=True))
+        part = torch.einsum("tec,ecf->tf", mine, y).to(x.device,
+                                                       non_blocking=True)
+        out = part if out is None else out + part  # the psum
+    return out
 
 
 def _from_flax(tree, dims=None) -> Dict[str, torch.Tensor]:

@@ -58,6 +58,33 @@ class OpDef:
     # passed the param explicitly or PerfParams(sink_dtype="float32").
     compact_sink: Optional[str] = None
 
+    # Parallel-axis capabilities: METADATA read by the executor (axis
+    # devices are reserved only when some graph op declares the axis), by
+    # PerfParams.resolve (accept/decline/auto-size a requested axis), and
+    # by the dry runs (parallel/dryrun.py). The op fn still asks its
+    # context for the mesh (ctx.sp_mesh/pipe_mesh/ep_mesh) and falls back
+    # unsharded when it gets None. Each is None (axis not supported) or
+    # ``(params: dict) -> int|None``:
+    #   sp_halo(params)  halo rows per side of the op's row-sharded
+    #                    formulation (0 = row-pointwise); None = not
+    #                    shardable under these params
+    #   stages(params)   length of the op's uniform stage chain (>= 2)
+    #   experts(params)  number of weight groups shardable over 'expert'
+    sp_halo: Optional[Callable] = None
+    stages: Optional[Callable] = None
+    experts: Optional[Callable] = None
+    # The data mesh splits a device segment's frames over its devices
+    # (runtime/executor.py) only when every op of the segment declares
+    # ``row_local=True``: its output row i depends on input rows
+    # i+lo..i+hi alone, and its arithmetic does not change with the
+    # number of rows a call holds (integer or per-pixel work), so the
+    # sharded rows are bit-equal to the unsharded ones. Opt-in: an op
+    # that couples a chunk's rows (MoEHead's capacity ranks, the face
+    # nets' chunk-wide crop budget) or whose float reductions and
+    # convolutions may take another order at another batch size leaves
+    # it False, and a segment holding it runs whole.
+    row_local: bool = False
+
     @property
     def n_outputs(self) -> int:
         return len(self.outputs)
@@ -81,6 +108,10 @@ def register_op(
     aux: Optional[Callable] = None,
     device_inputs: bool = False,
     compact_sink: Optional[str] = None,
+    sp_halo: Optional[Callable] = None,
+    stages: Optional[Callable] = None,
+    experts: Optional[Callable] = None,
+    row_local: bool = False,
 ):
     """Decorator registering an op implementation under ``name``.
 
@@ -89,6 +120,11 @@ def register_op(
     """
 
     assert kind in ("device", "host", "stateful", "whole_stream"), kind
+    for meta, fn_ in (("sp_halo", sp_halo), ("stages", stages),
+                      ("experts", experts)):
+        if fn_ is not None and not callable(fn_):
+            raise TypeError(f"register_op({name!r}): {meta} must be a "
+                            f"callable of the op's params, got {fn_!r}")
 
     def deco(fn: Callable) -> Callable:
         _OPS[name] = OpDef(
@@ -101,6 +137,10 @@ def register_op(
             aux=aux,
             device_inputs=device_inputs,
             compact_sink=compact_sink,
+            sp_halo=sp_halo,
+            stages=stages,
+            experts=experts,
+            row_local=row_local,
         )
         return fn
 

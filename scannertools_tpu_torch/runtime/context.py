@@ -6,8 +6,13 @@ face_embedding.py:31-52). Kernel-class instances are cached per (op, params)
 so TF/torch-style sessions are built once per job, like the reference's
 one-kernel-instance-per-worker model.
 
-The multi-device reservations of the JAX package (pipeline, spatial and
-expert meshes) are not carried here: this package runs on one device.
+The context also carries the run's axis reservations (the devices the
+executor reserved for ``PerfParams.pipeline_stages``, ``spatial_shards``
+and ``expert_shards``) and builds the ops' meshes over them
+(``pipe_mesh``, ``sp_mesh``, ``ep_mesh``: a ``parallel/mesh.Mesh`` or
+None, under the JAX package's conditions). Each call on a reserved axis is
+counted in the profiler: ``axis:<name>:engaged`` when it gives a mesh,
+``axis:<name>:not_engaged`` when the op must fall back unsharded.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 from .. import protobufs
+from ..parallel.mesh import Mesh
 
 
 class OpContext:
@@ -25,6 +31,9 @@ class OpContext:
         resources_dir: str = "/tmp/scannertools_tpu_resources",
         profiler=None,
         device=None,
+        pipe_devices=None,
+        sp_devices=None,
+        ep_devices=None,
     ):
         self.job = job
         self.stream_meta = stream_meta or {}
@@ -33,7 +42,60 @@ class OpContext:
         self.protobufs = protobufs
         #: the torch device the run's device ops compute on
         self.device = device
+        #: devices reserved for stage-pipeline parallelism
+        #: (PerfParams.pipeline_stages; ops build a 'pipe' mesh over a
+        #: prefix sized to their own stage count — models/pose.py
+        #: body_forward_pipelined)
+        self.pipe_devices = list(pipe_devices) if pipe_devices else None
+        #: devices reserved for spatial (frame-row) parallelism
+        #: (PerfParams.spatial_shards; row-shardable ops build an 'sp'
+        #: mesh — ops/imgproc.py blur)
+        self.sp_devices = list(sp_devices) if sp_devices else None
+        #: devices reserved for expert parallelism
+        #: (PerfParams.expert_shards; MoE ops build an 'expert' mesh —
+        #: ops/nn_generic.py MoEHead)
+        self.ep_devices = list(ep_devices) if ep_devices else None
         self._kernel_cache: Dict[Tuple, Any] = {}
+
+    def _count(self, axis: str, mesh):
+        if self.profiler is not None:
+            self.profiler.count(f"axis:{axis}:"
+                                + ("engaged" if mesh is not None
+                                   else "not_engaged"))
+        return mesh
+
+    def pipe_mesh(self, n_stages: int):
+        """A 'pipe' mesh of exactly ``n_stages`` reserved devices, or None
+        when pipeline parallelism is off / the reservation is smaller."""
+        if not self.pipe_devices:
+            return None
+        if len(self.pipe_devices) < n_stages:
+            return self._count("pipe", None)
+        return self._count("pipe", Mesh(self.pipe_devices[:n_stages],
+                                        ("pipe",)))
+
+    def sp_mesh(self, rows: int = 0, halo: int = 0):
+        """An 'sp' mesh over the reserved spatial devices, or None when
+        spatial parallelism is off or ``rows`` can't shard over it
+        (must divide evenly with each local shard >= ``halo``)."""
+        if not self.sp_devices:
+            return None
+        n = len(self.sp_devices)
+        if rows and (rows % n != 0 or rows // n < halo):
+            return self._count("sp", None)
+        return self._count("sp", Mesh(self.sp_devices, ("sp",)))
+
+    def ep_mesh(self, n_experts: int = 0):
+        """An 'expert' mesh over the reserved expert-parallel devices, or
+        None when expert parallelism is off or ``n_experts`` doesn't
+        divide the axis (MoE ops fall back to the single-device reference
+        formulation)."""
+        if not self.ep_devices:
+            return None
+        n = len(self.ep_devices)
+        if n_experts and n_experts % n != 0:
+            return self._count("expert", None)
+        return self._count("expert", Mesh(self.ep_devices, ("expert",)))
 
     @property
     def fps(self) -> float:

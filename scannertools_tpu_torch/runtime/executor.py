@@ -1,5 +1,5 @@
-"""Graph executor: runs the pipeline IR as eager torch chunk programs on one
-device.
+"""Graph executor: runs the pipeline IR as eager torch chunk programs on the
+client's device, or shard by shard over a mesh of devices.
 
 This is the replacement for the Scanner engine's run loop (master/worker
 gRPC scheduling + C++ kernel threads, SURVEY §1 L0). The design:
@@ -21,6 +21,20 @@ gRPC scheduling + C++ kernel threads, SURVEY §1 L0). The design:
     (``prefetch_depth``). On CUDA the same thread uploads each chunk from
     the staging ring on a side stream; the compute stream waits on the
     copy's event (see ``_Uploader``).
+  * Multi-device (the JAX package's axes, where GSPMD partitions a jitted
+    segment; here the executor splits it): with
+    ``pipeline_instances_per_node != 1`` and more than one local device a
+    device segment whose ops are all ``row_local`` (registry.py) has its
+    frames padded to a multiple of the data mesh,
+    each shard runs the segment on its device over its contiguous frames
+    plus the temporal halo its stencils read, and the rows are gathered
+    in order on the client's device (``_run_sharded_segment``); any
+    other segment runs whole, counted as ``axis:data:not_engaged``. The
+    pipeline, spatial and expert axes are reservations of devices that
+    the ops' own sharded forms use (runtime/context.py); at most one axis
+    runs at a time. Static job distribution takes this process's slice
+    of the jobs (``parallel/sharded.host_job_slice``: ``RANK`` of
+    ``WORLD_SIZE``).
 """
 
 from __future__ import annotations
@@ -38,7 +52,11 @@ from .. import types as typeslib
 from ..config import CacheMode, PerfParams
 from ..graph import (InputNode, Node, NodeOutput, OpNode, OutputNode,
                      SampleNode, toposort)
+from ..parallel.mesh import local_devices
+from ..parallel.sharded import (data_mesh, gather_rows, host_job_slice,
+                                pad_rows_to, row_windows)
 from ..registry import get_op
+from ..utils.flags import current_mesh, sharded_mode
 from ..utils.framechunk import FrameChunk
 from .context import OpContext
 from .profiler import Profiler
@@ -193,6 +211,8 @@ class Executor:
         # resolved op aux trees (model weights), keyed by (op name,
         # serialized params, device): loaded and moved once per executor
         self._aux: Dict[Tuple[str, str, str], Any] = {}
+        # the data mesh of the current run (None: unsharded)
+        self._mesh = None
 
     # ------------------------------------------------------------------ plan
 
@@ -387,9 +407,23 @@ class Executor:
             )
         need = self._intervals(order)
 
+        # Multi-device: shard the frame axis of device segments over the
+        # local mesh (pipeline_instances_per_node analog; parallel/sharded).
+        self._mesh = None
+        if perf.pipeline_instances_per_node != 1:
+            devs = local_devices(self.device)
+            if len(devs) > 1:
+                n = perf.pipeline_instances_per_node
+                self._mesh = data_mesh(min(n if n > 1 else len(devs),
+                                           len(devs)), self.device)
+            else:
+                self.profiler.count("axis:data:not_engaged",
+                                    reason="one local device")
+
         # Job distribution (reference master/worker analog): "static" runs
-        # every job in order; "claims" runs the jobs this process wins
-        # through storage-backed claims (parallel/workqueue.py).
+        # this process's contiguous slice of the jobs (RANK of WORLD_SIZE;
+        # every job in a lone process); "claims" runs the jobs this process
+        # wins through storage-backed claims (parallel/workqueue.py).
         n_jobs = len(sources[0].streams)
         claims = None
         if job_distribution == "claims":
@@ -403,7 +437,7 @@ class Executor:
                 claims.clear()
             jobs = claims.iter_jobs(n_jobs)
         else:
-            jobs = iter(range(n_jobs))
+            jobs = iter(host_job_slice(n_jobs))
         # Job-boundary overlap: job N's decode thread, once it drains its
         # last chunk, opens job N+1's decoders and decodes their first frame
         # (container probe + seek index + first keyframe), hiding the next
@@ -603,8 +637,34 @@ class Executor:
                 stream_meta = {"fps": m.fps, "width": m.width,
                                "height": m.height}
                 break
-        # PerfParams.estimate() defers packet sizing to here, where the
-        # job's frame geometry and stencil halo are known
+        # Axis reservations are METADATA-driven: devices are reserved only
+        # when some op in this graph DECLARES the axis
+        # (OpDef.sp_halo/stages/experts) — a requested axis nothing can
+        # consume reserves nothing (and is counted as not engaged). The
+        # axes would split the same devices differently, so combining them
+        # (or one with a data mesh of more than one device) is rejected up
+        # front, as the JAX package does.
+        declared = {"sp": [], "stages": [], "experts": []}
+        for n in order:
+            if not isinstance(n, OpNode):
+                continue
+            od = get_op(n.name)
+            if od.sp_halo is not None:
+                h = od.sp_halo(n.params)
+                if h is not None:
+                    declared["sp"].append(int(h))
+            if od.stages is not None:
+                L = int(od.stages(n.params) or 0)
+                if L >= 2:
+                    declared["stages"].append(L)
+            if od.experts is not None:
+                E = int(od.experts(n.params) or 0)
+                if E > 0:
+                    declared["experts"].append(E)
+        devs = local_devices(self.device)
+        # PerfParams.estimate() defers packet and axis sizing to here,
+        # where the job's frame geometry, stencil halo and the graph's
+        # declared axes are known
         if perf.auto:
             frame_bytes = None
             halo = 0
@@ -613,13 +673,50 @@ class Executor:
                 halo = max(halo, s_hi - s_lo)
             if stream_meta.get("width"):
                 frame_bytes = stream_meta["width"] * stream_meta["height"] * 3
-            perf = perf.resolve(frame_bytes, halo)
+            perf = perf.resolve(
+                frame_bytes, halo,
+                n_devices=1 if self._mesh is None else self._mesh.size,
+                rows=int(stream_meta.get("height") or 0),
+                declared_stages=tuple(declared["stages"]),
+                declared_sp_halos=tuple(declared["sp"]),
+                declared_experts=tuple(declared["experts"]),
+                total_devices=len(devs),
+            )
+        axes_on = {
+            "pipeline_stages": perf.pipeline_stages > 1,
+            "spatial_shards": perf.spatial_shards > 1,
+            "expert_shards": perf.expert_shards > 1,
+            "pipeline_instances_per_node":
+                self._mesh is not None and self._mesh.size > 1,
+        }
+        if sum(axes_on.values()) > 1:
+            on = [k for k, v in axes_on.items() if v]
+            raise ValueError(
+                f"PerfParams axes {on} are mutually exclusive: each "
+                "reserves the same mesh devices with a different sharding "
+                "inside one segment. Pick one per run.")
+        reserved = {}
+        for axis, size, decl in (("pipe", perf.pipeline_stages, "stages"),
+                                 ("sp", perf.spatial_shards, "sp"),
+                                 ("expert", perf.expert_shards, "experts")):
+            if size <= 1:
+                continue
+            if declared[decl] and len(devs) >= size:
+                reserved[axis] = devs[:size]
+            else:
+                self.profiler.count(
+                    f"axis:{axis}:not_engaged", job=job,
+                    reason="no op declares it" if not declared[decl]
+                    else f"{len(devs)} devices < {size}")
         ctx = OpContext(
             job=job,
             stream_meta=stream_meta,
             resources_dir=self.client.config.resources_dir(),
             profiler=self.profiler,
             device=self.device,
+            pipe_devices=reserved.get("pipe"),
+            sp_devices=reserved.get("sp"),
+            ep_devices=reserved.get("expert"),
         )
 
         # rows are zipped across inputs (reference N-input jobs): every
@@ -961,13 +1058,31 @@ class Executor:
             i += 1
 
     def _run_device_segment(self, seg: List[OpNode], need, values, ctx, T):
-        """Run a segment's ops in order on one device. An op passed
-        ``device=DeviceType.CPU`` computes on CPU tensors (its kernels'
-        plain versions) and hands host arrays on, like the JAX package's
-        forced-CPU segments."""
+        """Run a segment's ops in order on one device, or shard by shard
+        over the data mesh. An op passed ``device=DeviceType.CPU`` computes
+        on CPU tensors (its kernels' plain versions) and hands host arrays
+        on, like the JAX package's forced-CPU segments, which stay
+        unsharded as they do there."""
         on_cpu = seg[0].device == "cpu"  # grouping guarantees uniformity
+        if self._mesh is not None and not on_cpu:
+            if all(get_op(n.name).row_local for n in seg):
+                self._run_sharded_segment(seg, need, values, ctx, T)
+                return
+            # an op is not declared row-local: run the segment whole
+            self.profiler.count("axis:data:not_engaged",
+                                reason="not row-local: " + "+".join(
+                                    n.name for n in seg
+                                    if not get_op(n.name).row_local))
         device = torch.device("cpu") if on_cpu else self.device
+        values.update(self._segment_outputs(seg, need, values, ctx, T,
+                                            device, on_cpu))
+
+    def _segment_outputs(self, seg, need, values, ctx, T, device,
+                         on_cpu=False) -> Dict[Tuple[int, int], "_Value"]:
+        """The segment's ops in order on ``device`` over a chunk of T
+        rows, inputs looked up in ``values`` -> every output value."""
         local: Dict[Tuple[int, int], _Value] = {}
+        outs: Dict[Tuple[int, int], _Value] = {}
         for node in seg:
             n_lo, n_hi = need[node.id]
             opdef = get_op(node.name)
@@ -994,8 +1109,66 @@ class Executor:
             for k, r in enumerate(res):
                 if on_cpu:
                     r = _to_host(r)
-                values[(node.id, k)] = local[(node.id, k)] = _Value(
+                outs[(node.id, k)] = local[(node.id, k)] = _Value(
                     r, n_lo, n_hi, True)
+        return outs
+
+    def _run_sharded_segment(self, seg: List[OpNode], need, values, ctx,
+                             T: int) -> None:
+        """The segment over the data mesh. The chunk's T output rows are
+        padded to a multiple of the mesh (``local`` rows a shard); each
+        external input (rows [lo, T-1+hi] of its stream) is padded to
+        match by replicating its last row, and shard k gets its rows
+        ``[k*local, k*local + local + hi - lo)``: its own frames plus the
+        halo its stencils read (``row_windows``). The segment runs on
+        each shard's device as a chunk of ``local`` rows with
+        ``sharded_mode`` and ``current_mesh`` set, and each output's rows
+        come back in order on the client's device, cut to the chunk's.
+        Every output row below T reads real rows only, so the rows equal
+        the unsharded run's."""
+        mesh = self._mesh
+        devs = mesh.device_list()
+        m = len(devs)
+        local = -(-T // m)
+        seg_ids = {n.id for n in seg}
+        windows: Dict[Tuple[int, int], list] = {}
+        for node in seg:
+            for e in node.inputs.values():
+                key = (e.node.id, e.index)
+                if e.node.id in seg_ids or key in windows:
+                    continue
+                v = values[key]
+                extra = v.hi - v.lo
+                windows[key] = row_windows(
+                    pad_rows_to(v.data, local * m + extra), m, local, extra)
+        parts: List[Dict[Tuple[int, int], _Value]] = []
+        token = sharded_mode.set(True)
+        token_m = current_mesh.set(mesh)
+        try:
+            for k, dev in enumerate(devs):
+                shard_vals = {
+                    key: _Value(w[k], values[key].lo, values[key].hi, True)
+                    for key, w in windows.items()}
+                parts.append(self._segment_outputs(seg, need, shard_vals,
+                                                   ctx, local, dev))
+        finally:
+            sharded_mode.reset(token)
+            current_mesh.reset(token_m)
+        self.profiler.count("axis:data:engaged",
+                            segment="+".join(n.name for n in seg), shards=m)
+        for key in parts[0]:
+            n_lo, n_hi = need[key[0]]
+            # shard k's row i is the chunk's row k*local + n_lo + i: take
+            # each shard's own rows, the first shard's leading halo and
+            # the last shard's trailing one
+            rows = []
+            for k, p in enumerate(parts):
+                a = 0 if k == 0 else -n_lo
+                b = local - n_lo + (n_hi if k == m - 1 else 0)
+                rows.append(_rows_of(p[key].data, a, b - a))
+            data = _rows_of(gather_rows(rows, self.device), 0,
+                            T + n_hi - n_lo)
+            values[key] = _Value(data, n_lo, n_hi, True)
 
     def _resolve_aux(self, opdef, node, ctx, device: torch.device):
         key = (opdef.name, _ser_params(node.params), str(device))
@@ -1101,6 +1274,15 @@ class Executor:
             sink_worker.submit(emit)
         else:
             emit()
+
+
+def _rows_of(data, start: int, length: int):
+    """Rows [start, start + length) of a tensor, FrameChunk or tuple."""
+    if isinstance(data, FrameChunk):
+        return data.slice_rows(start, length)
+    if isinstance(data, tuple):
+        return tuple(_rows_of(d, start, length) for d in data)
+    return data[start:start + length]
 
 
 def _concat_host(parts: List[Any]):

@@ -46,6 +46,11 @@ class Profiler:
                 }
             )
 
+    def count(self, name: str, **meta) -> None:
+        """Record an event of no duration (read back by ``counts()``)."""
+        now = time.perf_counter()
+        self.add_interval(name, now, now, **meta)
+
     def totals(self) -> Dict[str, float]:
         """Total seconds per interval name."""
         out: Dict[str, float] = {}

@@ -150,8 +150,10 @@ def test_device_op_on_frame_chunks(rand_frames, fmt, op, params):
 def test_unknown_conversion_and_sp_halo_are_refused(rand_frames):
     with pytest.raises(ValueError, match="ConvertColorHost"):
         _run_port("ConvertColor", rand_frames, conversion="COLOR_RGB2LAB")
+    # sp_halo is ported: a callable of the op's params is declared, and
+    # anything else is refused
     with pytest.raises(TypeError):
-        register_op("TorchTestHalo", sp_halo=lambda p: 0)
+        register_op("TorchTestHalo", sp_halo=0)
 
 
 # ------------------------------------------------------------ host ops

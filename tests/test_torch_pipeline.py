@@ -216,10 +216,14 @@ def test_claims_job_distribution_is_refused(tsc, tvideo, tmp_path):
                                   "pipeline_stages", "spatial_shards",
                                   "expert_shards"])
 def test_unported_perf_knobs_are_refused(make, knob):
-    """The data mesh and the pipeline/spatial/expert axes are not ported:
-    their knobs raise instead of being silently ignored."""
+    """The data mesh and the pipeline/spatial/expert axes used to be
+    unported, and their knobs raised. They are ported now: each knob is
+    kept with the JAX package's meaning, and a knob the port does not
+    have is still refused rather than silently ignored."""
+    perf = getattr(st.PerfParams, make)(**{knob: 2})
+    assert getattr(perf, knob) == 2
     with pytest.raises(TypeError):
-        getattr(st.PerfParams, make)(**{knob: 2})
+        getattr(st.PerfParams, make)(**{knob + "_unknown": 2})
 
 
 @pytest.mark.parametrize("make", ["manual", "estimate"])
