@@ -204,7 +204,22 @@ Data axis: phase 2's graph, RGB and I420, with
 to phase 2's unsharded rows, 4 launches of the chunk's kernel a chunk,
 frames/s beside phase 2's; the executor's ``Histogram`` segment on one
 1080p 64-frame chunk over the mesh of 4 (pad, a launch a shard, gather)
-is timed beside the same segment unsharded (the same byte bound). Static multi-host: the first 4 of phase 10's jobs in two
+is timed beside the same segment unsharded (the same byte bound). The
+net graphs on the data axis (``NET_GRAPHS``): phase 4's MTCNN ->
+EmbedFaces and DetectGender (32 frames, chunks of 16), phase 5's
+DetectObjects and Faster R-CNN graphs (16 frames, chunks of 8), one
+8-frame chunk of phase 6's R-50-FPN graph and phase 7's OpenPose (16
+frames, chunks of 8), each unsharded and with
+``pipeline_instances_per_node=4`` on one Client: the box, face, detection
+and person counts, labels and shapes equal to the unsharded run's, the
+float outputs within 1e-4 of their largest value (the largest difference
+logged), ``axis:data:engaged`` on every chunk (by "batch_local", and
+"inner_split" for the face nets, which split their compacted crop batch)
+and never ``not_engaged``, the split segments' kernels launched on every
+shard (4 a chunk: MTCNN's 4 ``nms`` and 2 crops each, SSD's ``nms``,
+Faster R-CNN's ``nms`` and crop, Mask R-CNN's 2 ``nms`` and 2 level
+crops, OpenPose's ``pose_peaks``), and both runs' wall seconds logged.
+Static multi-host: the first 4 of phase 10's jobs in two
 processes of this script (``--static-slice``, ``RANK``/``WORLD_SIZE`` 0/2
 and 1/2) into one db, the union of their rows equal to phase 10's static
 rows. Spatial: ``Blur(kernel_size=5) -> ConvertToHSV`` on 8 seeded 1080p
@@ -4911,6 +4926,213 @@ def run_pipeline_axis(db: str) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, **launches[0]}
 
 
+# data axis over the nets: each graph of NET_GRAPHS over its first frames
+# of the face video in its chunks, unsharded and with
+# pipeline_instances_per_node=DATA_SHARDS on one Client (the weights moved
+# to the card once). Launches a chunk of the sharded run: every shard
+# launches its split segment's kernels (MTCNN's 4 nms and 2 crops, SSD's
+# nms, Faster R-CNN's nms and RoIAlign, Mask R-CNN's 2 nms and 2 level
+# crops, OpenPose's pose_peaks), and each face net its compaction crop once
+# on the client's device. The float outputs of the sharded run are held to
+# the unsharded run's within NET_RTOL of their largest value (another
+# batch's cuDNN algorithms); counts, labels and keep sets exactly.
+NET_GRAPHS = {
+    "faces": (FACE_FRAMES, FACE_CHUNK,
+              {"nms": 4 * DATA_SHARDS,
+               "crop_and_resize": 2 * DATA_SHARDS + 2}),
+    "objects": (16, DET_CHUNK, {"nms": DATA_SHARDS}),
+    "frcnn": (16, DET_CHUNK, {"nms": DATA_SHARDS,
+                              "crop_and_resize": DATA_SHARDS}),
+    "maskrcnn": (DET_CHUNK, DET_CHUNK,
+                 {"nms": 2 * DATA_SHARDS,
+                  "crop_and_resize_levels": 2 * DATA_SHARDS}),
+    "openpose": (POSE_FRAMES, POSE_CHUNK, {"pose_peaks": DATA_SHARDS}),
+}
+NET_RTOL = CARD_CPU_RTOL
+
+
+def net_graph(sc, frame, name: str, weights: dict):
+    """The output columns and stream names of data-axis graph ``name``:
+    phase 4's MTCNN -> EmbedFaces and DetectGender, phase 5's two graphs,
+    phase 6's R-50-FPN graph, phase 7's OpenPose."""
+    from scannertools_tpu_torch.ops.faces import MAX_FACES
+
+    if name == "faces":
+        faces = sc.ops.MTCNNDetectFaces(frame=frame,
+                                        weights_path=weights["mtcnn"],
+                                        thresholds=FACE_THRESHOLDS)
+        return [faces,
+                sc.ops.EmbedFaces(frame=frame, bboxes=faces,
+                                  weights_path=weights["facenet"],
+                                  faces_budget=MAX_FACES),
+                sc.ops.DetectGender(frame=frame, bboxes=faces,
+                                    weights_path=weights["gender"],
+                                    faces_budget=MAX_FACES)], \
+            ["faces", "embs", "genders"]
+    if name == "objects":
+        return [sc.ops.DetectObjects(frame=frame,
+                                     weights_path=weights["ssd"])], \
+            ["objects"]
+    if name == "frcnn":
+        pre = sc.ops.NNInput(frame=frame, input_width=FRCNN_W,
+                             input_height=FRCNN_H, mean_colors=FRCNN_MEAN)
+        cls_prob, rois, fc7 = sc.ops.FasterRCNN(
+            input=pre, weights_path=weights["faster_rcnn"])
+        boxes, feats = sc.ops.FasterRCNNOutput(
+            cls_prob=cls_prob, rois=rois, fc7=fc7,
+            score_threshold=FRCNN_SCORE)
+        return [boxes, feats], ["frcnn_boxes", "frcnn_feats"]
+    if name == "maskrcnn":
+        return [sc.ops.MaskRCNNDetectObjects(
+            frame=frame, weights_path=weights["maskrcnn"], arch=MRCNN_ARCH,
+            confidence_threshold=MRCNN_CONFIDENCE)], ["mrcnn"]
+    return [pose_graph(sc, frame, "openpose", weights["openpose"])], \
+        ["poses"]
+
+
+def _net_launches() -> dict:
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import pose as PP
+
+    return {"nms": MC.nms.launches,
+            "crop_and_resize": MC.crop_and_resize.launches,
+            "crop_and_resize_levels": MC.crop_and_resize_levels.launches,
+            "pose_peaks": PP.find_peaks.launches}
+
+
+def _reset_net_launches() -> None:
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import pose as PP
+
+    MC.nms.launches = MC.crop_and_resize.launches = 0
+    MC.crop_and_resize_levels.launches = PP.find_peaks.launches = 0
+
+
+def _element_parts(el):
+    """A stored element -> (what must be equal, its float values)."""
+    if isinstance(el, np.ndarray):
+        return ("array", el.shape), el.astype(np.float64).ravel()
+    if isinstance(el, str):
+        return el, np.zeros(0)
+    if isinstance(el, dict):  # a Mask R-CNN detection
+        (lab, box), mask = _element_parts(el["bbox"]), el["mask"]
+        return (lab, mask.shape), np.concatenate([box, mask.ravel()])
+    if hasattr(el, "_kp"):  # a Pose
+        return ("pose", el._kp.shape), np.concatenate(
+            [[el._score], np.asarray(el._kp, np.float64).ravel()])
+    return el.label, np.array([el.x1, el.y1, el.x2, el.y2, el.score])
+
+
+def _net_rows_compare(got: list, want: list) -> dict:
+    """One stream's rows of the sharded run against the unsharded run's
+    -> {"count", "equal" (lengths, labels, shapes), "err_of_max"}."""
+    equal = len(got) == len(want)
+    err, top, count = 0.0, 0.0, 0
+    for g, w in zip(got, want):  # a frame's elements (array rows too)
+        g, w = list(g), list(w)
+        count += len(g)
+        if len(g) != len(w):
+            equal = False
+            continue
+        for a, b in zip(g, w):
+            (ka, va), (kb, vb) = _element_parts(a), _element_parts(b)
+            if ka != kb or va.shape != vb.shape:
+                equal = False
+                continue
+            if vb.size:
+                err = max(err, float(np.abs(va - vb).max()))
+                top = max(top, float(np.abs(vb).max()))
+    return {"count": count, "equal": equal,
+            "err_of_max": err / top if top else err}
+
+
+def run_net_data_axis(db: str, name: str, weights: dict) -> dict:
+    """Graph ``name`` of NET_GRAPHS unsharded (a first run moves the
+    weights to the card), with pipeline_instances_per_node=DATA_SHARDS,
+    and unsharded again, on one Client -> the sharded run's launches.
+    Raises unless the counts, labels and shapes equal the unsharded
+    run's, the float outputs agree within NET_RTOL of their largest
+    value, the data axis engaged on every chunk and never fell back, and
+    the split segments launched their kernels on every shard."""
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch.parallel.sharded import data_mesh
+
+    frames, chunk, per_chunk = NET_GRAPHS[name]
+    stream_cls = synthetic_stream_class(
+        FACE_FRAMES, FACE_H, FACE_W,
+        lambda: FaceDecoder(FACE_FRAMES, FACE_H, FACE_W))
+    sc = _client(os.path.join(db, f"nets_{name}"))
+    frame = sc.io.Input([stream_cls(sc, "net_video")])
+    frame = sc.streams.Gather(frame, [list(range(frames))])
+    cols, names = net_graph(sc, frame, name, weights)
+    outs = [st.NamedStream(sc, n) for n in names]
+
+    def run(inst: int):
+        before = {k: len(sc.profiler.intervals(f"axis:data:{k}"))
+                  for k in ("engaged", "not_engaged")}
+        _reset_net_launches()
+        _sync()
+        t0 = time.perf_counter()
+        sc.run(sc.io.Output(cols, [tuple(outs)]),
+               st.PerfParams.manual(work_packet_size=chunk, ingest="rgb",
+                                    pipeline_instances_per_node=inst),
+               cache_mode=st.CacheMode.Overwrite)
+        _sync()
+        seconds = time.perf_counter() - t0
+        axis = {k: sc.profiler.intervals(f"axis:data:{k}")[n:]
+                for k, n in before.items()}
+        return ([list(o.load()) for o in outs], _net_launches(), seconds,
+                axis)
+
+    run(1)
+    got, launches, seconds, axis = run(DATA_SHARDS)
+    want, one_launches, one_seconds, _ = run(1)
+    chunks = -(-frames // chunk)
+    cmp = {n: _net_rows_compare(g, w) for n, g, w in zip(names, got, want)}
+    engaged = {}
+    for iv in axis["engaged"]:
+        by = iv["meta"]["by"]
+        engaged[by] = engaged.get(by, 0) + 1
+    want_launches = {k: per_chunk.get(k, 0) * chunks for k in launches}
+    rec = {"run": "data_axis_nets", "graph": name,
+           "mesh": data_mesh(DATA_SHARDS, DEVICE).names(), "frames": frames,
+           "chunk": chunk, "counts": {n: c["count"] for n, c in cmp.items()},
+           "counts_equal": all(c["equal"] for c in cmp.values()),
+           "err_of_max": {n: c["err_of_max"] for n, c in cmp.items()},
+           "axis_counts": {"engaged": engaged,
+                           "not_engaged": len(axis["not_engaged"])},
+           "launches": launches, "unsharded_launches": one_launches,
+           "seconds": seconds, "unsharded_seconds": one_seconds}
+    log(rec)
+    if not rec["counts_equal"]:
+        raise AssertionError(f"data axis {name}: counts, labels or shapes "
+                             "differ from the unsharded run")
+    worst = max(rec["err_of_max"].values())
+    if not worst <= NET_RTOL:
+        raise AssertionError(f"data axis {name}: outputs differ by {worst} "
+                             "of their largest value")
+    if axis["not_engaged"] or sum(engaged.values()) < chunks:
+        raise AssertionError(f"data axis {name}: counts {rec['axis_counts']}")
+    if launches != want_launches:
+        raise AssertionError(f"data axis {name}: launches {launches}, want "
+                             f"{want_launches}")
+    return {k: launches[k] + one_launches[k] for k in launches}
+
+
+def run_net_data_axes(db: str) -> dict:
+    """Every graph of NET_GRAPHS on the weights phases 4-7 wrote into
+    ``db`` -> {kernel: launches of the graphs' sharded and unsharded
+    timed runs}."""
+    weights = {k: os.path.join(db, f"{k}.npz") for k in
+               ("mtcnn", "facenet", "gender", "ssd", "faster_rcnn",
+                "maskrcnn", "openpose")}
+    total: dict = {}
+    for name in NET_GRAPHS:
+        for k, n in run_net_data_axis(db, name, weights).items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def run_expert_axis(db: str) -> dict:
     """MoEHead with expert_shards=EP_SHARDS_MOE and DetectClothing with
     expert_shards=EP_SHARDS_CLOTHING, each against the unsharded run:
@@ -5082,12 +5304,14 @@ def run_axes(db: str, phase2: dict, static_rows: list) -> dict:
     os.environ[LOGICAL_DEVICES_ENV] = str(MESH_DEVICES)
     try:
         launches = run_data_axis(db, phase2)
+        for k, n in run_net_data_axes(db).items():
+            launches[k] = launches.get(k, 0) + n
         records = {"hist_rgb_sharded": sharded_segment_timing(db)}
         launches["hist_rgb"] += run_static_slices(db, static_rows)
         records["spatial"] = run_spatial_axis(db)
         pp = run_pipeline_axis(db)
         records["pipeline"] = pp
-        launches["pose_peaks"] = pp["pose_peaks"]
+        launches["pose_peaks"] += pp["pose_peaks"]
         records["expert"] = run_expert_axis(db)
         records["tensor"] = run_tensor_axis()
         records["dryrun"] = run_dry(db)
@@ -5185,7 +5409,8 @@ def main() -> int:
          "replaces": "scannertools_tpu/models/common.py:33",
          "launches": (face_launches["nms"] + det_launches["nms"]
                       + mrcnn_launches["nms"] + attr_launches["nms"]
-                      + job_launches["weights_in"]["nms"]),
+                      + job_launches["weights_in"]["nms"]
+                      + axes["launches"]["nms"]),
          **records["nms"],
          "library_ms": None},
         {"name": "crop_and_resize", "route": "cuda",
@@ -5198,7 +5423,9 @@ def main() -> int:
                       + mrcnn_launches["crop_and_resize"]
                       + mrcnn_launches["crop_and_resize_levels"]
                       + pose_launches["crop_and_resize"]
-                      + attr_launches["crop_and_resize"]),
+                      + attr_launches["crop_and_resize"]
+                      + axes["launches"]["crop_and_resize"]
+                      + axes["launches"]["crop_and_resize_levels"]),
          **records["crop_and_resize"]},
         # no single torch call finds local maxima with top_k's tie order;
         # yardstick_ms: max_pool2d -> where -> topk, the same peaks

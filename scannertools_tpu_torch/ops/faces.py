@@ -47,8 +47,10 @@ from ..models import streetstyle as streetstyle_lib
 from ..models import weights as weights_lib
 from ..models.common import crop_and_resize
 from ..parallel import expert as expert_lib
+from ..parallel.sharded import split_batch
 from ..registry import register_composite, register_op
 from ..runtime.executor import _tree_to
+from ..utils.flags import current_mesh, shard_states
 from ..utils.framechunk import FrameChunk, as_hwc_f32
 
 _MODEL_CACHE: Dict[Any, Any] = {}
@@ -165,12 +167,20 @@ def _mtcnn_aux(ctx, params):
 
 
 @register_op("MTCNNForward", kind="device", aux=_mtcnn_aux,
-             outputs=("array_f32", "array_f32", "array_i32"))
+             outputs=("array_f32", "array_f32", "array_i32"),
+             batch_local=True)
 def mtcnn_forward(ctx, aux, frame, weights_path: Optional[str] = None,
                   thresholds=mtcnn_lib.THRESHOLDS):
     """Full MTCNN cascade on device: [T,H,W,3] frames -> margin-expanded
     normalized boxes [T,MAX_FACES,4], scores [T,MAX_FACES], valid mask
-    (validity already folds the reference's score>=0.1 filter)."""
+    (validity already folds the reference's score>=0.1 filter).
+
+    ``batch_local`` (the data mesh splits it, frames a shard): every cap
+    of ``detect_batch`` is a frame's own (MAX_CELLS_PER_SCALE cells a
+    scale, MAX_STAGE1, MAX_STAGE2 and 2 * MAX_FACES boxes, MAX_FACES
+    faces), each of its four ``nms`` calls takes a [frames, K] batch
+    with K a frame's candidates (the scales stacked on the frame axis),
+    and each top-k runs along a frame's own row; no host sync."""
     x = as_hwc_f32(frame)
     _, h, w, _ = x.shape
     boxes, scores, valid = mtcnn_lib.detect_batch(aux, x, tuple(thresholds))
@@ -294,12 +304,24 @@ def _overflow_rows(sel, sel_ok, want, t: int, k: int):
             - emb.reshape(t, k).sum(dim=1)).to(torch.int32)
 
 
+def _net_rows(fwd, aux, crops: torch.Tensor):
+    """``fwd(aux, crops)``, or, when the executor runs the op over a data
+    mesh (``inner_split``: ``shard_states`` set), the crop batch split
+    over the mesh's devices, each slice through that device's weights,
+    the rows gathered in order (``parallel/sharded.split_batch``)."""
+    states = shard_states.get()
+    if states is None:
+        return fwd(aux, crops)
+    return split_batch(fwd, states, crops, current_mesh.get())
+
+
 def _facenet_aux(ctx, params):
     return _get_params("facenet", params.get("weights_path"))
 
 
 @register_op("FaceEmbedForward", kind="device", aux=_facenet_aux,
-             outputs=("array_f32", "array_i32", "array_i32"))
+             outputs=("array_f32", "array_i32", "array_i32"),
+             inner_split=True)
 def face_embed_forward(ctx, aux, frame, nboxes, valid,
                        weights_path: Optional[str] = None,
                        minibatch: int = 5, faces_budget: int = 8):
@@ -309,13 +331,18 @@ def face_embed_forward(ctx, aux, frame, nboxes, valid,
     (face_embedding.py:70). ``minibatch`` is accepted for API parity; the
     crop batch is compacted across the chunk to ``faces_budget``·T crops
     (see _compact_crops); ``overflow`` counts valid faces per frame beyond
-    that budget (zero-embedded; the decode stage warns)."""
+    that budget (zero-embedded; the decode stage warns).
+
+    The budget spans the chunk, so the data mesh does not split the op by
+    frames (``inner_split``): it compacts on the client's device, as the
+    JAX package's GSPMD run computes it, and splits the [B, 160, 160, 3]
+    crop batch over the mesh (``_net_rows``)."""
     x = as_hwc_f32(frame)
     t = x.shape[0]
     k = nboxes.shape[1]
     crops, sel, sel_ok, want = _compact_crops(x, nboxes, valid, 160,
                                               faces_budget)
-    embs = facenet_lib.embed(aux, crops)  # [B, 128]
+    embs = _net_rows(facenet_lib.embed, aux, crops)  # [B, 128]
     return (_scatter_rows(embs, sel, sel_ok, t, k), valid,
             _overflow_rows(sel, sel_ok, want, t, k))
 
@@ -358,7 +385,8 @@ def _gender_aux(ctx, params):
 
 
 @register_op("GenderForward", kind="device", aux=_gender_aux,
-             outputs=("array_i32", "array_i32", "array_i32"))
+             outputs=("array_i32", "array_i32", "array_i32"),
+             inner_split=True)
 def gender_forward(ctx, aux, frame, nboxes, valid,
                    weights_path: Optional[str] = None,
                    faces_budget: int = 8):
@@ -366,14 +394,15 @@ def gender_forward(ctx, aux, frame, nboxes, valid,
     [T,MAX_FACES] int32, valid, overflow [T]). Degenerate crops label 0
     ('M'), matching the host path's LABELS[0] fallback. Crop batch
     compacted across the chunk (see _compact_crops); ``overflow`` counts
-    valid faces beyond the budget (the decode stage warns)."""
+    valid faces beyond the budget (the decode stage warns). Over a data
+    mesh the crop batch splits as FaceEmbedForward's does."""
     x = as_hwc_f32(frame)
     t = x.shape[0]
     k = nboxes.shape[1]
     crops, sel, sel_ok, want = _compact_crops(x, nboxes, valid,
                                               gender_lib.INPUT_SIZE,
                                               faces_budget)
-    labels = gender_lib.classify(aux, crops)  # [B] int32
+    labels = _net_rows(gender_lib.classify, aux, crops)  # [B] int32
     out = _scatter_rows(labels[:, None], sel, sel_ok, t, k)[..., 0]
     return out, valid, _overflow_rows(sel, sel_ok, want, t, k)
 

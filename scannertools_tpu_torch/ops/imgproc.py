@@ -300,7 +300,14 @@ def frame_difference(ctx, frames):
 
 # ------------------------------------------------- Brightness/Contrast/Sharp
 
-@register_op("Brightness", kind="device", outputs=("array_f32",))
+# Brightness, Contrast and Sharpness are ``batch_local``, not
+# ``row_local``: a frame's value reads its own pixels alone, but each is a
+# float32 sum over the frame (of integers up to 255 a pixel: past 2**24 at
+# 1080p, where a float32 sum is no longer exact), and torch's reductions
+# choose how to split an output's sum from the number of outputs, the
+# batch, on the CPU and on CUDA.
+@register_op("Brightness", kind="device", outputs=("array_f32",),
+             batch_local=True)
 def brightness(ctx, frame):
     """Mean Y of RGB2YUV (old/imgproc.py:11-16)."""
     x = _as_u8_hwc(frame)
@@ -310,7 +317,8 @@ def brightness(ctx, frame):
     return _mean(y, (1, 2))[:, None]
 
 
-@register_op("Contrast", kind="device", outputs=("array_f32",))
+@register_op("Contrast", kind="device", outputs=("array_f32",),
+             batch_local=True)
 def contrast(ctx, frame):
     """RMS deviation of the Y channel (old/imgproc.py:19-30)."""
     x = _as_u8_hwc(frame)
@@ -332,7 +340,8 @@ def _laplacian_var(x):
     return _mean((lap - mean) ** 2, (1, 2, 3))
 
 
-@register_op("Sharpness", kind="device", outputs=("array_f32",))
+@register_op("Sharpness", kind="device", outputs=("array_f32",),
+             batch_local=True)
 def sharpness(ctx, frame):
     return _laplacian_var(_as_u8_hwc(frame))[:, None]
 

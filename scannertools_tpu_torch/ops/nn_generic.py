@@ -11,7 +11,8 @@ optional /255 + planar transpose) and the ``FasterRCNN`` Caffe op
 (scannertools_tpu's ops/nn_generic.py): a registry of models by name (the
 analog of caffe prototxt paths in ``NetDescriptor.model_path``), each name
 mapped to the forward the JAX registry names, with the JAX package's
-inputs and outputs (NHWC); preprocessing is a device op.
+inputs and outputs (NHWC), and ``register_model`` adds a user's own;
+preprocessing is a device op.
 
 ``MoEHead`` runs on one device (``parallel/expert.moe_reference``), or
 with its experts split over the reserved 'expert' devices under
@@ -32,7 +33,7 @@ from ..registry import register_op
 from ..utils.framechunk import as_hwc_f32
 from ..utils.net_descriptor import NetDescriptor
 from ..utils.numerics import div, resize_hw
-from .faces import _get_params
+from .faces import _MODEL_CACHE, _MODELS, _get_params
 
 
 def _openpose_maps(state, x: torch.Tensor):
@@ -43,7 +44,8 @@ def _openpose_maps(state, x: torch.Tensor):
 
 
 # registry name -> (the model's name in faces._MODELS: its weights, its
-# forward(state, x)); the forwards the JAX registry names
+# forward(state, x)); the forwards the JAX registry names, and those added
+# by register_model
 _NN_REGISTRY: Dict[str, Tuple[str, Callable]] = {
     "facenet_inception_resnet_v1": ("facenet", facenet.embed),
     "ssd_mobilenet_v1": ("ssd", ssd.detect),
@@ -58,6 +60,47 @@ _NN_REGISTRY: Dict[str, Tuple[str, Callable]] = {
 }
 
 
+# registry name -> whether the data mesh may split NNForward over it
+# frames a shard (registry.py's ``batch_local``): every built-in forward
+# reads a frame's own row; a registered model says so itself
+_BATCH_LOCAL: Dict[str, bool] = dict.fromkeys(_NN_REGISTRY, True)
+
+
+class _RegisteredWeights:
+    """A registered model's weights, as ``faces._get_params`` asks for
+    them: ``init_params(seed)`` is the model's ``init_fn``; an npz named by
+    ``weights_path`` is read as the tree it holds (``save_params``'
+    layout, the JAX package's ``load_params`` reads it alike), its leaves
+    as tensors."""
+
+    def __init__(self, init_fn: Callable):
+        self.init_params = init_fn
+
+    @staticmethod
+    def from_flax(tree):
+        if isinstance(tree, dict):
+            return {k: _RegisteredWeights.from_flax(v)
+                    for k, v in tree.items()}
+        return torch.as_tensor(tree)
+
+
+def register_model(name: str, init_fn: Callable, apply_fn: Callable,
+                   batch_local: bool = False) -> None:
+    """Register a model for the generic NNForward op (the analog of caffe
+    prototxt paths in NetDescriptor.model_path), as the JAX package's
+    ``register_model`` does: ``init_fn(seed)`` returns the port's weight
+    tree (a dict of tensors), ``apply_fn(state, x)`` the forward on NHWC
+    float32 rows. ``batch_local=True`` declares that output row i reads
+    input row i alone (no capacity or sort over the chunk), so the data
+    mesh may split NNForward over this model frames a shard."""
+    wname = f"nn:{name}"
+    for key in [k for k in _MODEL_CACHE if wname in k[:2]]:
+        del _MODEL_CACHE[key]  # a model registered again draws anew
+    _MODELS[wname] = _RegisteredWeights(init_fn)
+    _NN_REGISTRY[name] = (wname, apply_fn)
+    _BATCH_LOCAL[name] = bool(batch_local)
+
+
 def get_model(name: str) -> Tuple[str, Callable]:
     """Registry name -> (weights name for ``faces._get_params``, forward)."""
     if name not in _NN_REGISTRY:
@@ -67,13 +110,16 @@ def get_model(name: str) -> Tuple[str, Callable]:
     return _NN_REGISTRY[name]
 
 
-@register_op("NNInput", kind="device", outputs=("array_f32",))
+@register_op("NNInput", kind="device", outputs=("array_f32",),
+             batch_local=True)
 def nn_input(ctx, frame, input_width: int = -1, input_height: int = -1,
              mean_colors=(), normalize: bool = False, transpose: bool = False,
              pad_mod: int = -1):
     """CaffeInput-equivalent preprocessing (caffe_input_transformer_base.h:
     35-99 semantics): resize to descriptor dims, subtract per-channel mean,
-    optional /255 normalize, optional planar transpose, pad to %pad_mod."""
+    optional /255 normalize, optional planar transpose, pad to %pad_mod.
+    ``batch_local``: per frame, but the float resize is a matrix product
+    whose algorithm may change with the batch."""
     x = as_hwc_f32(frame)
     if input_width > 0 and input_height > 0:
         x = resize_hw(x, 1, input_height, input_width, "linear")
@@ -108,15 +154,24 @@ def _nn_aux(ctx, params):
     return _get_params(get_model(model)[0], weights_path)
 
 
+def _nn_batch_local(params) -> bool:
+    model, _ = _resolve_descriptor(
+        params.get("model", ""), params.get("descriptor_path", ""),
+        params.get("weights_path"))
+    return _BATCH_LOCAL.get(model, False)
+
+
 @register_op("NNForward", kind="device", aux=_nn_aux,
-             outputs=("array_f32",))
+             outputs=("array_f32",), batch_local=_nn_batch_local)
 def nn_forward(ctx, aux, input, model: str = "", descriptor_path: str = "",
                weights_path: Optional[str] = None):
     """Generic forward pass (the reference's ``Caffe`` op,
     caffe_kernel.cpp:335-431). ``model`` names a registry entry, or
     ``descriptor_path`` points at a NetDescriptor TOML whose model_path is
     the registry name. Device op: weights enter via OpDef.aux. Output: the
-    model's (first) output, rows = frames."""
+    model's (first) output, rows = frames. ``batch_local`` for the
+    built-in models and for a model registered so (``register_model``):
+    the data mesh then splits it frames a shard."""
     model, _ = _resolve_descriptor(model, descriptor_path, weights_path)
     _, fwd = get_model(model)
     out = fwd(aux, torch.as_tensor(input).to(torch.float32).contiguous())
@@ -160,7 +215,8 @@ def moe_head(ctx, aux, input, n_experts: int = 8, d_model: int = 0,
     n_experts doesn't divide the axis — the single-device formulation
     runs, with identical routing, capacity and drop semantics. A token's
     slot is its rank among the chunk's tokens, so the op couples a
-    chunk's rows (not ``row_local``: the data mesh does not split it)."""
+    chunk's rows (neither ``row_local`` nor ``batch_local``: the data
+    mesh runs it whole)."""
     x = as_hwc_f32(input)  # FrameChunk or plain array -> f32
     x = x.reshape(x.shape[0], -1)
     if x.shape[1] != int(d_model):
@@ -184,12 +240,18 @@ def _frcnn_aux(ctx, params):
 
 
 @register_op("FasterRCNN", kind="device", aux=_frcnn_aux,
-             outputs=("array_f32", "array_f32", "array_f32"))
+             outputs=("array_f32", "array_f32", "array_f32"),
+             batch_local=True)
 def faster_rcnn_forward(ctx, aux, input, weights_path: Optional[str] = None):
     """Faster R-CNN forward (faster_rcnn_kernel.cpp:6-33): input is the
     NNInput-preprocessed frame batch (BGR, caffe mean); emits per frame
     cls_prob [R,81], rois [R,5] (batch, x1, y1, x2, y2 in input pixels —
     im_info scale is 1.0, matching the reference's net_config), fc7
-    [R,4096]. Feed FasterRCNNOutput for the 0.7-threshold argmax decode."""
+    [R,4096]. Feed FasterRCNNOutput for the 0.7-threshold argmax decode.
+
+    ``batch_local``: the top ``pre_nms`` anchors, the proposals' ``nms``
+    ([frames, pre_nms] -> R) and the RoIAlign (a frame index a box) are a
+    frame's own; the rois' batch column is 0, not the frame's place in
+    the chunk; no host sync."""
     x = torch.as_tensor(input).to(torch.float32).contiguous()
     return get_model("faster_rcnn")[1](aux, x)

@@ -37,10 +37,14 @@ def _ssd_aux(ctx, params):
 
 
 @register_op("SSDForward", kind="device", aux=_ssd_aux,
-             outputs=("array_f32", "array_f32", "array_i32"))
+             outputs=("array_f32", "array_f32", "array_i32"),
+             batch_local=True)
 def ssd_forward(ctx, aux, frame, weights_path: Optional[str] = None):
     """SSD-MobileNetV1 + decode + NMS on device: frames -> normalized boxes
-    [T,100,4], scores [T,100], classes [T,100] (models/ssd.py)."""
+    [T,100,4], scores [T,100], classes [T,100] (models/ssd.py).
+
+    ``batch_local``: the prefilter's top 512 anchors and the one ``nms``
+    call ([frames, 512] -> 100) are a frame's own; no host sync."""
     return ssd_lib.detect(aux, as_hwc_f32(frame))
 
 
@@ -81,7 +85,8 @@ def _maskrcnn_aux(ctx, params):
 
 @register_op("MaskRCNNForward", kind="device", aux=_maskrcnn_aux,
              outputs=("array_f32", "array_f32", "array_i32", "array_f32",
-                      "array_i32"))
+                      "array_i32"),
+             batch_local=True)
 def maskrcnn_forward(ctx, aux, frame, weights_path: Optional[str] = None,
                      arch: str = "R-50-FPN", min_size: int = -1,
                      max_size: int = -1, pre_nms: int = -1,
@@ -93,7 +98,15 @@ def maskrcnn_forward(ctx, aux, frame, weights_path: Optional[str] = None,
     labels, masks [T,MAX_DET,28,28], dims [T,2] = (h, w) of the source
     frames for the decode's mask canvases). ``min_size``/``max_size``
     override the reference's 800/1333 and ``pre_nms``/``post_nms``/
-    ``max_det`` its caps (tests use small canvases)."""
+    ``max_det`` its caps (tests use small canvases).
+
+    ``batch_local``: every cap is a frame's own. The proposals' ``nms``
+    takes the levels of all frames as one [levels x T, pre_nms] batch,
+    but each of its rows is one (level, frame) pair, and the best
+    ``post_nms`` are then taken along each frame's row; the RoIAlign
+    crops read each box's own frame (``frame_idx``) and level; the
+    finals' ``nms`` is [T, post_nms]. No host sync on the card (the
+    level crop's plain version, on CPU tensors, syncs a level)."""
     x = as_hwc_f32(frame)
     t, h, w, _ = x.shape
     images, scale = mr.preprocess(

@@ -254,7 +254,7 @@ def _openpose_aux(ctx, params):
 
 @register_op("OpenPoseForward", kind="device", aux=_openpose_aux,
              outputs=("array_f32", "array_i32", "array_f32", "array_i32"),
-             stages=lambda p: 5)
+             stages=lambda p: 5, batch_local=True)
 def openpose_forward(ctx, aux, frame, weights_path: Optional[str] = None,
                      pose_num_scales: int = 1, pose_scale_gap: float = 0.1,
                      pose_upsample: str = "linear"):
@@ -266,7 +266,12 @@ def openpose_forward(ctx, aux, frame, weights_path: Optional[str] = None,
     ``pose_upsample`` "cubic" applies OpenPose's wrapper resize to the
     grid-to-frame upsample and the merge's last resize. Outputs: peaks
     [T,18,P,3] (padded-pixel coords), valid, limb scores, dims [T,2] = (h,
-    w) unpadded."""
+    w) unpadded.
+
+    ``batch_local``: the peaks (``find_peaks``, the ``pose_peaks`` kernel:
+    the top P of each frame's part map) and the limb scores are a frame's
+    own; no host sync. Under the data mesh each shard launches
+    ``pose_peaks`` once a chunk."""
     x = as_hwc_f32(frame)
     t, h, w, _ = x.shape
     # pad with zeros to a multiple of 8 (the network's stride)
@@ -393,11 +398,13 @@ def _build_openpose(inputs, params, device):
 
 # ----------------------------------------------- CPM2 name-parity surface
 
-@register_op("CPM2Input", kind="device", outputs=("array_f32",))
+@register_op("CPM2Input", kind="device", outputs=("array_f32",),
+             batch_local=True)
 def cpm2_input(ctx, frame, scale: float = 1.0):
     """CPM2 preprocessing (cpm2_input_kernel_gpu.cpp:97-141): scale
     (linear, without antialiasing), pad W/H to a multiple of 8 with
-    gray(128), map to [-0.5, 0.5] f32. [T, H, W, 3] -> [T, H', W', 3]."""
+    gray(128), map to [-0.5, 0.5] f32. [T, H, W, 3] -> [T, H', W', 3].
+    ``batch_local``: per frame; the float resize is a matrix product."""
     x = as_hwc_f32(frame)
     _, h, w, _ = x.shape
     if scale != 1.0:
@@ -408,11 +415,12 @@ def cpm2_input(ctx, frame, scale: float = 1.0):
 
 
 @register_op("CPM2", kind="device", aux=_openpose_aux,
-             outputs=("array_f32", "array_f32"))
+             outputs=("array_f32", "array_f32"), batch_local=True)
 def cpm2(ctx, aux, cpm2_input, weights_path: Optional[str] = None):
     """CPM2 network forward (cpm2_kernel.cpp:13-52): heat maps [T, H, W,
     19] and PAF maps [T, H, W, 38] (the JAX package's layout), linearly
-    resized to the input's resolution (the ImResizeLayer contract)."""
+    resized to the input's resolution (the ImResizeLayer contract).
+    ``batch_local``: a frame's maps read its own input alone."""
     x = torch.as_tensor(cpm2_input).to(torch.float32)
     _, h, w, _ = x.shape
     heat, paf = pose_lib.infer_maps(aux, x.permute(0, 3, 1, 2), (h, w))

@@ -275,8 +275,9 @@ def run_executor_dryrun(n_devices: int, device=None) -> None:
     """The chunked executor over an n-device data mesh, with a tail chunk
     whose frame count does not divide the mesh and a stencil whose halo
     crosses shard boundaries: Histogram and FrameDifference rows equal to
-    the plain references, and MTCNN's rows equal to a 1-instance run (a
-    net is not declared row-local, so its segment runs whole)."""
+    the plain references, and MTCNN's rows within 1e-5 of a 1-instance
+    run (``MTCNNForward`` is ``batch_local``: its segment splits frames a
+    shard, each shard's nets at a smaller batch)."""
     from ..ops.histogram import hist_rgb_plain
 
     n_frames = 2 * n_devices + 3  # ragged tail: W=2n -> tail T=3

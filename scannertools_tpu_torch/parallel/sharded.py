@@ -13,6 +13,9 @@ Here the executor splits a device segment itself (runtime/executor.py):
     plus the temporal halo its stencils need (``row_windows``), the
     segment runs on each shard's device, and ``gather_rows`` puts the
     shards' rows back in order on the client's device.
+  * An op that couples a chunk's rows before a per-row net (the face
+    nets' crop budget) runs whole and hands its net's batch to
+    ``split_batch``: a slice of rows a device, gathered in order.
   * Inter-host: jobs (videos / frame ranges) partition statically across
     processes by their index (``host_job_slice``): the master/worker
     control plane collapses into deterministic ownership, with storage
@@ -144,3 +147,26 @@ def host_job_slice(n_jobs: int, process_index: Optional[int] = None,
         raise ValueError(f"host_job_slice: process {pi} of {pc}")
     per = -(-n_jobs // pc)
     return range(min(pi * per, n_jobs), min((pi + 1) * per, n_jobs))
+
+
+def split_batch(fn, states: list, x: torch.Tensor, mesh: Mesh):
+    """``fn(state, rows)`` over contiguous row slices of ``x``, slice k on
+    the mesh's k-th device with ``states[k]``, that device's copy of the
+    weights -> the rows (a tensor, or a tuple of them) in order on
+    ``x``'s device. For a net whose row i reads input row i alone (the
+    face nets over a compacted crop batch, ops/faces.py); no host sync.
+
+    The slices are at most one row apart in length and hold two rows or
+    more (fewer slices than devices when the batch is small): a one-row
+    batch takes the matrix-vector path of a net's linear layers, which
+    rounds otherwise than the batched product (FaceNet's embeddings by
+    1.3e-7 on the CPU), and costs its device a whole forward for one
+    crop."""
+    devs = mesh.device_list()
+    if len(states) != len(devs):
+        raise ValueError(f"split_batch: {len(states)} weight copies for "
+                         f"{len(devs)} devices")
+    n = max(1, min(len(devs), len(x) // 2))
+    parts = [fn(s, move(rows, d)) for s, d, rows in
+             zip(states, devs, torch.tensor_split(x, n))]
+    return gather_rows(parts, x.device)

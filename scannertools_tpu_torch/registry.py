@@ -29,7 +29,7 @@ frames, and must emit exactly T rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 
 @dataclasses.dataclass
@@ -73,17 +73,38 @@ class OpDef:
     sp_halo: Optional[Callable] = None
     stages: Optional[Callable] = None
     experts: Optional[Callable] = None
-    # The data mesh splits a device segment's frames over its devices
-    # (runtime/executor.py) only when every op of the segment declares
-    # ``row_local=True``: its output row i depends on input rows
-    # i+lo..i+hi alone, and its arithmetic does not change with the
-    # number of rows a call holds (integer or per-pixel work), so the
-    # sharded rows are bit-equal to the unsharded ones. Opt-in: an op
-    # that couples a chunk's rows (MoEHead's capacity ranks, the face
-    # nets' chunk-wide crop budget) or whose float reductions and
-    # convolutions may take another order at another batch size leaves
-    # it False, and a segment holding it runs whole.
+    # The data mesh (runtime/executor.py) splits a run of a device
+    # segment's ops over its devices, frames a shard, when each op of the
+    # run declares one of two classes; both are opt-in:
+    #   row_local    output row i depends on input rows i+lo..i+hi alone,
+    #                and the arithmetic does not change with the number
+    #                of rows a call holds (integer or per-pixel work): the
+    #                sharded rows are bit-equal to the unsharded ones.
+    #   batch_local  output row i depends on input rows i+lo..i+hi alone,
+    #                with no capacity, top-k or sort over the whole chunk,
+    #                but float reductions and convolutions may round
+    #                otherwise at another batch (cuDNN picks algorithms
+    #                by shape): the nets. A bool, or ``(params) -> bool``
+    #                where it depends on the op's params (NNForward's
+    #                model).
+    # ``inner_split`` ops couple a chunk's rows before a per-row net (the
+    # face nets' chunk-wide crop budget): the executor runs them whole
+    # with ``current_mesh`` and ``shard_states`` set (utils/flags.py), and
+    # the op splits its net's batch itself (parallel/sharded.split_batch).
+    # Any other op (MoEHead's capacity ranks) runs whole.
     row_local: bool = False
+    batch_local: Union[bool, Callable[[dict], bool]] = False
+    inner_split: bool = False
+
+    def data_class(self, params: dict) -> Optional[str]:
+        """How the data mesh treats the op under ``params``: "row_local",
+        "batch_local", "inner_split", or None (it runs whole)."""
+        if self.row_local:
+            return "row_local"
+        bl = self.batch_local
+        if bl(params) if callable(bl) else bl:
+            return "batch_local"
+        return "inner_split" if self.inner_split else None
 
     @property
     def n_outputs(self) -> int:
@@ -112,6 +133,8 @@ def register_op(
     stages: Optional[Callable] = None,
     experts: Optional[Callable] = None,
     row_local: bool = False,
+    batch_local: Union[bool, Callable[[dict], bool]] = False,
+    inner_split: bool = False,
 ):
     """Decorator registering an op implementation under ``name``.
 
@@ -141,6 +164,8 @@ def register_op(
             stages=stages,
             experts=experts,
             row_local=row_local,
+            batch_local=batch_local,
+            inner_split=inner_split,
         )
         return fn
 

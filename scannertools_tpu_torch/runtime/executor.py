@@ -24,12 +24,14 @@ gRPC scheduling + C++ kernel threads, SURVEY §1 L0). The design:
   * Multi-device (the JAX package's axes, where GSPMD partitions a jitted
     segment; here the executor splits it): with
     ``pipeline_instances_per_node != 1`` and more than one local device a
-    device segment whose ops are all ``row_local`` (registry.py) has its
-    frames padded to a multiple of the data mesh,
-    each shard runs the segment on its device over its contiguous frames
-    plus the temporal halo its stencils read, and the rows are gathered
-    in order on the client's device (``_run_sharded_segment``); any
-    other segment runs whole, counted as ``axis:data:not_engaged``. The
+    run of a device segment's ops that are all ``row_local`` or
+    ``batch_local`` (registry.py) has its frames padded to a multiple of
+    the data mesh, each shard runs those ops on its device over its
+    contiguous frames plus the temporal halo its stencils read, and the
+    rows are gathered in order on the client's device
+    (``_run_sharded_segment``); an ``inner_split`` op runs whole and
+    splits its net's batch over the mesh itself (``_run_inner_split``);
+    any other op runs whole, counted as ``axis:data:not_engaged``. The
     pipeline, spatial and expert axes are reservations of devices that
     the ops' own sharded forms use (runtime/context.py); at most one axis
     runs at a time. Static job distribution takes this process's slice
@@ -56,10 +58,31 @@ from ..parallel.mesh import local_devices
 from ..parallel.sharded import (data_mesh, gather_rows, host_job_slice,
                                 pad_rows_to, row_windows)
 from ..registry import get_op
-from ..utils.flags import current_mesh, sharded_mode
+from ..utils.flags import current_mesh, shard_states, sharded_mode
 from ..utils.framechunk import FrameChunk
 from .context import OpContext
 from .profiler import Profiler
+
+
+def _data_runs(seg: List[OpNode]) -> List[Tuple[Optional[str], list]]:
+    """A device segment's ops in maximal runs of one treatment on the
+    data mesh, in order: ("row_local" | "batch_local", ops) split frames
+    a shard (the run is "batch_local" if any of its ops is),
+    ("inner_split", ops) and (None, ops) whole."""
+    split = ("row_local", "batch_local")
+    runs: List[Tuple[Optional[str], list]] = []
+    for node in seg:
+        cls = get_op(node.name).data_class(node.params)
+        last = runs[-1][0] if runs else "none"
+        if last in split and cls in split:
+            both = "row_local" if last == cls == "row_local" \
+                else "batch_local"
+            runs[-1] = (both, runs[-1][1] + [node])
+        elif last == cls:
+            runs[-1][1].append(node)
+        else:
+            runs.append((cls, [node]))
+    return runs
 
 
 def _rss_mb() -> float:
@@ -1058,24 +1081,55 @@ class Executor:
             i += 1
 
     def _run_device_segment(self, seg: List[OpNode], need, values, ctx, T):
-        """Run a segment's ops in order on one device, or shard by shard
-        over the data mesh. An op passed ``device=DeviceType.CPU`` computes
-        on CPU tensors (its kernels' plain versions) and hands host arrays
-        on, like the JAX package's forced-CPU segments, which stay
-        unsharded as they do there."""
+        """Run a segment's ops in order on one device, or over the data
+        mesh run by run (``_data_runs``): a run of ``row_local`` and
+        ``batch_local`` ops shard by shard (``_run_sharded_segment``), an
+        ``inner_split`` op whole with the mesh set (``_run_inner_split``),
+        any other op whole, counted as not engaged. An op passed
+        ``device=DeviceType.CPU`` computes on CPU tensors (its kernels'
+        plain versions) and hands host arrays on, like the JAX package's
+        forced-CPU segments, which stay unsharded as they do there."""
         on_cpu = seg[0].device == "cpu"  # grouping guarantees uniformity
-        if self._mesh is not None and not on_cpu:
-            if all(get_op(n.name).row_local for n in seg):
-                self._run_sharded_segment(seg, need, values, ctx, T)
-                return
-            # an op is not declared row-local: run the segment whole
-            self.profiler.count("axis:data:not_engaged",
-                                reason="not row-local: " + "+".join(
-                                    n.name for n in seg
-                                    if not get_op(n.name).row_local))
-        device = torch.device("cpu") if on_cpu else self.device
-        values.update(self._segment_outputs(seg, need, values, ctx, T,
-                                            device, on_cpu))
+        if self._mesh is None or on_cpu:
+            device = torch.device("cpu") if on_cpu else self.device
+            values.update(self._segment_outputs(seg, need, values, ctx, T,
+                                                device, on_cpu))
+            return
+        for cls, run in _data_runs(seg):
+            if cls in ("row_local", "batch_local"):
+                self._run_sharded_segment(run, need, values, ctx, T, cls)
+            elif cls == "inner_split":
+                self._run_inner_split(run, need, values, ctx, T)
+            else:
+                self.profiler.count("axis:data:not_engaged",
+                                    reason="not row- or batch-local: "
+                                    + "+".join(n.name for n in run))
+                values.update(self._segment_outputs(run, need, values, ctx,
+                                                    T, self.device))
+
+    def _run_inner_split(self, run: List[OpNode], need, values, ctx,
+                         T: int) -> None:
+        """``inner_split`` ops, each whole on the client's device with
+        ``current_mesh`` and ``shard_states`` (its weights on each device
+        of the mesh, one copy a device) set: the op couples the chunk's
+        rows (a crop budget) and then splits its net's batch over the
+        mesh itself (``parallel/sharded.split_batch``)."""
+        mesh = self._mesh
+        for node in run:
+            opdef = get_op(node.name)
+            states = None if opdef.aux is None else [
+                self._resolve_aux(opdef, node, ctx, d)
+                for d in mesh.device_list()]
+            token_m = current_mesh.set(mesh)
+            token_s = shard_states.set(states)
+            try:
+                values.update(self._segment_outputs([node], need, values,
+                                                    ctx, T, self.device))
+            finally:
+                current_mesh.reset(token_m)
+                shard_states.reset(token_s)
+            self.profiler.count("axis:data:engaged", segment=node.name,
+                                shards=mesh.size, by="inner_split")
 
     def _segment_outputs(self, seg, need, values, ctx, T, device,
                          on_cpu=False) -> Dict[Tuple[int, int], "_Value"]:
@@ -1114,7 +1168,7 @@ class Executor:
         return outs
 
     def _run_sharded_segment(self, seg: List[OpNode], need, values, ctx,
-                             T: int) -> None:
+                             T: int, by: str) -> None:
         """The segment over the data mesh. The chunk's T output rows are
         padded to a multiple of the mesh (``local`` rows a shard); each
         external input (rows [lo, T-1+hi] of its stream) is padded to
@@ -1125,7 +1179,10 @@ class Executor:
         ``sharded_mode`` and ``current_mesh`` set, and each output's rows
         come back in order on the client's device, cut to the chunk's.
         Every output row below T reads real rows only, so the rows equal
-        the unsharded run's."""
+        the unsharded run's: bit for bit when every op is ``row_local``
+        (``by``), within the nets' rounding at another batch when some op
+        is ``batch_local``. A failure on a shard raises; nothing reruns
+        the segment whole."""
         mesh = self._mesh
         devs = mesh.device_list()
         m = len(devs)
@@ -1155,7 +1212,8 @@ class Executor:
             sharded_mode.reset(token)
             current_mesh.reset(token_m)
         self.profiler.count("axis:data:engaged",
-                            segment="+".join(n.name for n in seg), shards=m)
+                            segment="+".join(n.name for n in seg), shards=m,
+                            by=by)
         for key in parts[0]:
             n_lo, n_hi = need[key[0]]
             # shard k's row i is the chunk's row k*local + n_lo + i: take

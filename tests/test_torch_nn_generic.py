@@ -33,6 +33,7 @@ import scannertools_tpu as jst
 import scannertools_tpu_torch as st
 from scannertools_tpu.models import facenet_detector as JFD
 from scannertools_tpu.models import weights as JW
+from scannertools_tpu.ops import faces as JFO
 from scannertools_tpu.ops import nn_generic as JN
 from scannertools_tpu.parallel import expert as JE
 from scannertools_tpu.utils.net_descriptor import NetDescriptor as JND
@@ -42,6 +43,7 @@ from scannertools_tpu_torch.ops import faces as PFO
 from scannertools_tpu_torch.ops import nn_generic as PN
 from scannertools_tpu_torch.parallel import expert as PE
 from scannertools_tpu_torch.utils.net_descriptor import NetDescriptor
+from test_torch_sharded_executor import FakeVideo
 
 RTOL = 1e-5  # of the largest |value|
 MOE_ATOL = 1e-6
@@ -97,6 +99,60 @@ def test_unknown_model_raises():
         PN.get_model("vgg_face")
     with pytest.raises(KeyError, match="no registered model"):
         PN._nn_aux(None, {"model": "vgg_face"})
+
+
+def test_nn_forward_registry_and_register_model(tmp_path):
+    """tests/test_decode_ops.py's registry case on the port (an unknown
+    name raises KeyError, a built-in resolves), then ``register_model``
+    with the JAX package's signature: a toy model (a frame's channel means
+    through a dense layer) registered in both packages runs through
+    NNInput -> NNForward on the same npz weights, and the rows agree
+    within 1e-5 of their largest value; re-registering a name draws its
+    weights anew. Both registries get their built-in names back."""
+    with pytest.raises(KeyError):
+        PN.get_model("nope")
+    assert PN.get_model("gender_levi_hassner")
+    name = "nn_generic_toy"
+    w = np.random.default_rng(8).normal(size=(3, 5)).astype(np.float32)
+    path = str(tmp_path / "toy.npz")
+    PW.save_params(path, {"w": w})
+    frames = np.random.default_rng(9).integers(0, 256, (4, 6, 10, 3),
+                                               np.uint8)
+    JN.register_model(name, lambda rng: None,
+                      lambda v, x: jnp.tanh(x.mean(axis=(1, 2)) @ v["w"]))
+    PN.register_model(name, lambda seed: {"w": torch.ones(3, 5)},
+                      lambda s, x: torch.tanh(x.mean(dim=(1, 2)) @ s["w"]))
+    try:
+        rows = {}
+        for pkg, tag in ((st, "t"), (jst, "j")):
+            kw = dict(device="cpu") if pkg is st else {}
+            sc = pkg.Client(db_path=str(tmp_path / tag), **kw)
+            frame = sc.io.Input([FakeVideo(frames)])
+            pre = sc.ops.NNInput(frame=frame, normalize=True)
+            out = pkg.NamedStream(sc, "toy")
+            sc.run(sc.io.Output(sc.ops.NNForward(input=pre, model=name,
+                                                 weights_path=path), [out]),
+                   pkg.PerfParams.manual(work_packet_size=2),
+                   cache_mode=pkg.CacheMode.Overwrite)
+            rows[tag] = np.stack(list(out.load()))
+        assert rows["t"].shape == (4, 5)
+        np.testing.assert_allclose(rows["t"], rows["j"], rtol=0,
+                                   atol=1e-5 * np.abs(rows["j"]).max())
+        assert torch.equal(PN._nn_aux(None, {"model": name})["w"],
+                           torch.ones(3, 5))
+        PN.register_model(name, lambda seed: {"w": torch.zeros(3, 5)},
+                          lambda s, x: x)
+        assert not PN._nn_aux(None, {"model": name})["w"].any()
+        assert PN._BATCH_LOCAL[name] is False
+    finally:
+        JN._NN_REGISTRY.pop(name, None)
+        PN._NN_REGISTRY.pop(name, None)
+        PN._BATCH_LOCAL.pop(name, None)
+        PFO._MODELS.pop("nn:" + name, None)
+        for cache in (JFO._MODEL_CACHE, PFO._MODEL_CACHE):
+            for key in [k for k in cache if "nn:" + name in k[:2]]:
+                del cache[key]
+    assert sorted(PN._NN_REGISTRY) == sorted(JN._NN_REGISTRY)
 
 
 DESCRIPTOR = """

@@ -9,9 +9,11 @@ is bit for bit, ragged tail chunks included; the flow pair stencil is
 held to the port's own unsharded run with ``==``: each shard computes its
 rows with the same arithmetic. ``Histogram`` launches one kernel call per
 shard and chunk (here the plain version: CPU tensors). A segment holding
-an op that is not declared row-local (MoEHead, the face nets with their
-chunk-wide crop budget) runs whole, and its rows equal the unsharded
-run's and the JAX package's."""
+an op that is neither row- nor batch-local (MoEHead) runs whole, and its
+rows equal the unsharded run's and the JAX package's; the face nets with
+their chunk-wide crop budget stay whole and split only their compacted
+crop batch (tests/test_torch_data_mesh_nets.py holds the nets split
+frames a shard)."""
 
 import numpy as np
 import pytest
@@ -324,11 +326,13 @@ def _crowd_graph(pkg, db, fv, gender_npz, inst, embed):
 def test_face_budget_segments_stay_whole_on_the_data_mesh(eight, tmp_path):
     """GenderForward and FaceEmbedForward take the first faces_budget*T
     valid crops of the WHOLE chunk, so a crowded frame beside empty ones
-    needs the chunk's budget: their segments are not row-local and run
-    whole under pipeline_instances_per_node=8 (counted), every face of the
-    crowded frame is classified and embedded, and the rows equal the
-    port's unsharded run and (genders) the JAX package's 8-device run on
-    the same weights."""
+    needs the chunk's budget: under pipeline_instances_per_node=8 their
+    segments stay whole (``inner_split``: the compaction runs on the
+    client's device) and split only the compacted crop batch over the
+    mesh (counted engaged, by "inner_split"), every face of the crowded
+    frame is classified and embedded, and the rows equal the port's
+    unsharded run and (genders) the JAX package's 8-device run on the
+    same weights."""
     import jax
 
     from scannertools_tpu.models import gender as JG
@@ -346,8 +350,12 @@ def test_face_budget_segments_stay_whole_on_the_data_mesh(eight, tmp_path):
     assert e8[0].shape == (3, 128) and np.abs(e8[0]).sum(axis=1).all()
     assert all(np.array_equal(a, b) for a, b in zip(e8, e1))
     counts = prof.counts()
-    assert counts["axis:data:not_engaged"] == 2
-    assert "axis:data:engaged" not in counts
+    assert counts["axis:data:engaged"] == 2
+    assert "axis:data:not_engaged" not in counts
+    assert sorted((iv["meta"]["segment"], iv["meta"]["by"])
+                  for iv in prof.intervals("axis:data:engaged")) == [
+        ("FaceEmbedForward", "inner_split"),
+        ("GenderForward", "inner_split")]
 
 
 def test_static_slices_over_two_processes(tmp_path, monkeypatch):
