@@ -240,6 +240,30 @@ and the pipeline, spatial and expert goldens. Every axis it asks for must
 count as engaged and never as not engaged (the profiler's
 ``axis:<name>:*`` counters); the phase must end within 120 s.
 
+Phase 12 draws every family's default weights on the card (the JAX
+package's ``init_*(jax.random.PRNGKey(0))`` through
+``models/jax_random.py``), holds each to the committed digest of the JAX
+package's draw (``tools/jax_defaults_digest.json``: paths, shapes, sums,
+8 values a leaf) and logs each family's draw ms beside the card's name
+and power limit. It then runs the six single-process examples of
+``examples/`` unedited, at their own widths on default weights, over a
+96-frame 640x480 clip that cv2 writes (cuts at 24, 48 and 72; the
+examples' stride of 30 gives each net graph 4 frames): in one subprocess
+of this script (``--examples-worker``) that maps the name
+``scannertools_tpu`` to the port (``tools/jax_alias.py``), each example
+runs once with the kernels, their launches counted from 0, and once
+with every kernel patched to its plain version. The face, Faster R-CNN
+and pose examples, whose random nets keep no row, run again on npz files
+of the default draw with their output layers raised
+(``write_examples_npz``), passed through each example's weights
+argument. Each graph's stored rows must equal its plain run's, the shot
+cuts must be the planted ones, the plain runs must launch nothing, no
+module of JAX or of the JAX package may load, and ``hist_rgb`` or
+``hist_i420``, ``nms``, the crops and ``pose_peaks`` must each launch.
+The npz runs, SSD, Mask R-CNN and the shot runs must keep a row in every
+stream; a default-weight graph that keeps none is logged on a line of
+its own. The launches join the kernels line.
+
 Output, on stdout: one JSON line per phase-1 check, the run totals, then
 ``{"kernels": [...]}``, the card's name and power limit from nvidia-smi,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit
@@ -2357,9 +2381,9 @@ def run_maskrcnn_pipeline(db: str):
                 raise AssertionError(f"Mask R-CNN detection out of its "
                                      f"contract: {b}, mask "
                                      f"{d['mask'].shape}")
-    # the ResNeXt trunk (grouped convolutions): one chunk on the port's
-    # own seeded weights (no weights_path: its npz would be 400 MB), the
-    # same checks
+    # the ResNeXt trunk (grouped convolutions): one chunk on the default
+    # weights (no weights_path: its npz would be 400 MB), which are the
+    # JAX package's draw, the same checks
     x_rows, x_launches, x_runs = run_maskrcnn_graph(
         os.path.join(db, "mrcnn_x"), None, arch=MRCNN_X_ARCH,
         frames=DET_CHUNK)
@@ -2370,6 +2394,9 @@ def run_maskrcnn_pipeline(db: str):
                 "masks_per_frame": [len(f) for f in x_rows],
                 "rows_equal_plain": _maskrcnn_rows_equal(x_rows, x_plain)}
     log(x_result)
+    if not any(x_result["masks_per_frame"]):
+        log({"maskrcnn_note": f"{MRCNN_X_ARCH} keeps no row on default "
+             f"weights ({DET_CHUNK} frames)"})
     if x_launches != [MRCNN_LAUNCHES_PER_CHUNK]:
         raise AssertionError(f"{MRCNN_X_ARCH}: launches {x_launches}")
     if not x_result["rows_equal_plain"] or len(x_rows) != DET_CHUNK:
@@ -5281,7 +5308,7 @@ def run_dry(db: str) -> dict:
     from scannertools_tpu_torch.parallel.mesh import make_mesh
 
     loss = D.run_dryrun(DRY_DEVICES, device=DEVICE)
-    params = {k: v.to(DEVICE) for k, v in D.init_params(0).items()}
+    params = D.default_params(DEVICE)  # run_dryrun's weights
     frames, labels = D._data(16, 32)
     _, want = D.train_step(params, frames.to(DEVICE), labels.to(DEVICE))
     D.run_pp_sp_dryrun(MESH_DEVICES, device=DEVICE)
@@ -5324,6 +5351,327 @@ def run_axes(db: str, phase2: dict, static_rows: list) -> dict:
 
 
 # ------------------------------------------------------------ main
+
+
+# ------------------------------------------------------------ phase 12
+
+EXAMPLES_HW = (480, 640)
+EXAMPLES_FRAMES = 96  # stride 30 gives each net graph 4 frames
+EXAMPLES_CUTS = [24, 48, 72]
+# tag -> (example, its arguments with {video}, {db} and {npz} filled in,
+# the streams it stores, whether they are one-row shot streams, whether
+# it must keep a row): the six single-process examples of examples/, as
+# a user runs them, on default weights; then the three whose default
+# nets keep no row (faces, Faster R-CNN, pose) on EXAMPLES_NPZ's files
+EXAMPLE_RUNS = {
+    "shots": ("shot_detection.py", ["{video}"], ["example_shots"], True,
+              True),
+    "faces": ("face_pipeline.py", ["{video}"],
+              ["demo_faces", "demo_embs", "demo_genders"], False, False),
+    "ssd": ("object_detection.py", ["{video}", "--model", "ssd"],
+            ["objdet_boxes"], False, True),
+    "faster_rcnn": ("object_detection.py",
+                    ["{video}", "--model", "faster_rcnn"],
+                    ["frcnn_boxes", "frcnn_feats"], False, False),
+    "pose": ("pose_pipeline.py", ["{video}", "--faces", "--hands"],
+             ["pose_out"], False, False),
+    "segmentation": ("segmentation.py", ["{video}"], ["demo_masks"], False,
+                     True),
+    "elastic": ("elastic_cluster.py", ["--db", "{db}", "{video}", "{video}"],
+                ["shots_0", "shots_1"], True, True),
+    "faces_npz": ("face_pipeline.py", ["{video}", "{npz}/mtcnn.npz"],
+                  ["demo_faces", "demo_embs", "demo_genders"], False, True),
+    "faster_rcnn_npz": ("object_detection.py",
+                        ["{video}", "--model", "faster_rcnn", "--weights",
+                         "{npz}/faster_rcnn.npz"],
+                        ["frcnn_boxes", "frcnn_feats"], False, True),
+    "pose_npz": ("pose_pipeline.py", ["{video}", "--faces", "--hands",
+                                      "--weights", "{npz}/openpose.npz"],
+                 ["pose_out"], False, True),
+}
+# EXAMPLES_NPZ's edits of the default draw
+EXAMPLES_NPZ_FRCNN_BIAS = 20.0  # class 1's logit raised over random ones
+EXAMPLES_NPZ_POSE_SCALE = 1000.0
+
+
+# each kernel wrapper -> its plain version, by module
+PLAIN_OF = {"nms": "nms_plain", "crop_and_resize": "crop_and_resize_plain",
+            "crop_and_resize_levels": "crop_and_resize_levels_plain",
+            "find_peaks": "find_peaks_plain", "hist_rgb": "hist_rgb_plain",
+            "hist_i420": "hist_i420_plain"}
+
+
+def _kernel_modules():
+    from scannertools_tpu_torch.models import common as MC
+    from scannertools_tpu_torch.models import pose as PP
+    from scannertools_tpu_torch.ops import histogram as H
+
+    return {"nms": MC, "crop_and_resize": MC, "crop_and_resize_levels": MC,
+            "find_peaks": PP, "hist_rgb": H, "hist_i420": H}
+
+
+def _example_launches() -> dict:
+    return {k: getattr(m, k).launches
+            for k, m in _kernel_modules().items()}
+
+
+def _reset_example_launches() -> None:
+    for k, m in _kernel_modules().items():
+        getattr(m, k).launches = 0
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every reference to a kernel wrapper in the port's loaded modules
+    replaced by the wrapper's plain version (a sweep of the modules'
+    globals, each module once whatever names it is loaded under)."""
+    from unittest import mock
+
+    plain = {id(getattr(m, k)): getattr(m, PLAIN_OF[k])
+             for k, m in _kernel_modules().items()}
+    seen = set()
+    with contextlib.ExitStack() as stack:
+        for name, mod in list(sys.modules.items()):
+            if mod is None or id(mod) in seen or not (
+                    getattr(mod, "__name__", "") or "").startswith(
+                        "scannertools_tpu_torch"):
+                continue
+            seen.add(id(mod))
+            for attr, val in list(vars(mod).items()):
+                if id(val) in plain:
+                    stack.enter_context(
+                        mock.patch.object(mod, attr, plain[id(val)]))
+        yield
+
+
+def _plain_rows(x):
+    """A stored row -> nested lists, dicts, bytes and numbers, equal for
+    equal rows (numpy arrays by their dtype, shape and bytes)."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: _plain_rows(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if hasattr(x, "serialize") and hasattr(x, "pose_keypoints"):
+        return x.serialize()
+    if isinstance(x, dict):
+        return {k: _plain_rows(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain_rows(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return (str(x.dtype), x.shape, x.tobytes())
+    return x
+
+
+def examples_worker(out_json: str, video: str, workdir: str, npz: str,
+                    device: str = "cuda") -> int:
+    """This script's hidden ``--examples-worker`` mode: each example of
+    EXAMPLE_RUNS under the ``scannertools_tpu`` alias on the card, once
+    with the kernels (their launches counted from 0) and once with every
+    kernel patched to its plain version -> a JSON of launches, rows
+    equal, row counts and seconds a run. ``npz``: the directory of
+    EXAMPLES_NPZ's files. ``device`` "cpu" (a rehearsal) points the
+    examples' ``Client()`` at the CPU."""
+    import runpy
+
+    import torch
+
+    import scannertools_tpu_torch as st
+    from scannertools_tpu_torch import client
+    from scannertools_tpu_torch.tools import jax_alias
+
+    if device != "cuda":
+        resolve = client._resolve_device
+        client._resolve_device = lambda d: resolve(device if d is None
+                                                   else d)
+    jax_alias.install()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for tag, (script, args, names, one_row, _) in EXAMPLE_RUNS.items():
+        path = os.path.join(here, "examples", script)
+        rows, launches, seconds = {}, {}, {}
+        for mode in ("kernels", "plain"):
+            db = os.path.join(workdir, tag, mode)
+            os.environ["SCANNERTOOLS_TPU_DB"] = os.path.join(db, "db")
+            argv = [a.format(video=video, db=os.path.join(db, "edb"),
+                             npz=npz) for a in args]
+            sys.argv = [path, *argv]
+            _reset_example_launches()
+            t0 = time.perf_counter()
+            with plain_kernels() if mode == "plain" else \
+                    contextlib.nullcontext():
+                with contextlib.redirect_stdout(sys.stderr):
+                    runpy.run_path(path, run_name="__main__")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds[mode] = time.perf_counter() - t0
+            launches[mode] = _example_launches()
+            sc = st.Client(db_path=os.path.join(db, "edb") if "{db}" in
+                           args else os.path.join(db, "db"), device=device)
+            rows[mode] = {n: list(st.NamedStream(sc, n).load(
+                rows=[0] if one_row else None)) for n in names}
+        out[tag] = {
+            "seconds": seconds, "launches": launches["kernels"],
+            "plain_launches": launches["plain"],
+            "rows_equal_plain": _plain_rows(rows["kernels"])
+            == _plain_rows(rows["plain"]),
+            "rows": {n: [len(r) if isinstance(r, (list, np.ndarray))
+                         else r for r in v]
+                     for n, v in rows["kernels"].items()},
+            "cuts": {n: [list(map(int, r)) for r in v]
+                     for n, v in rows["kernels"].items()} if one_row
+            else None}
+    loaded = jax_alias.jax_package_modules()
+    with open(out_json, "w") as f:
+        json.dump({"runs": out, "jax_modules": loaded}, f)
+    return 0 if not loaded else 1
+
+
+def write_examples_video(path: str) -> None:
+    """A 96-frame 640x480 mp4v clip, cv2-written: four shots of 24 frames
+    (cuts at 24, 48 and 72) with a moving white bar."""
+    import cv2
+
+    h, w = EXAMPLES_HW
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, (w, h))
+    for i in range(EXAMPLES_FRAMES):
+        f = np.zeros((h, w, 3), np.uint8)
+        f[:] = COLORS[i // 24][::-1]
+        x = (i * 6) % (w - 40)
+        f[h // 4:3 * h // 4, x:x + 40] = 255
+        vw.write(f)
+    vw.release()
+
+
+def write_examples_npz(d: str) -> None:
+    """The weights files of the ``*_npz`` example runs, each the default
+    draw (drawn on the card) with the edits tests/test_torch_examples.py
+    makes, so that random nets keep rows: MTCNN's face-class biases
+    raised (faces pass 0.45, 0.6 and 0.7), Faster R-CNN's class-1 logit
+    raised by EXAMPLES_NPZ_FRCNN_BIAS (every RoI scores above 0.7), the
+    OpenPose body's last-stage output layers scaled by
+    EXAMPLES_NPZ_POSE_SCALE (PAF and heat peaks pass the thresholds).
+    Written in ``save_params``'s layout (``weights._flatten``'s keys) but
+    stored uncompressed: its zlib pass takes about 50 s on Faster R-CNN's
+    553 MB."""
+    import torch
+
+    from scannertools_tpu_torch.models import (faster_rcnn, jax_random,
+                                               mtcnn, pose, weights)
+
+    key = jax_random.prng_key(0, DEVICE)
+    trees = {"mtcnn": mtcnn.default_tree(key),
+             "faster_rcnn": faster_rcnn.default_tree(key),
+             "openpose": pose.default_tree(key)}
+    for net, head in (("pnet", "conv4_1"), ("rnet", "fc2_1"),
+                      ("onet", "fc2_1")):
+        trees["mtcnn"][net][head]["bias"] = torch.tensor([-1.5, 1.5])
+    trees["faster_rcnn"]["params"]["cls_score"]["bias"][1] += \
+        EXAMPLES_NPZ_FRCNN_BIAS
+    for layer in ("s5_L1_6", "s5_L2_6"):  # Mconv7_stage6_L1 and _L2
+        trees["openpose"]["params"][layer]["kernel"] *= \
+            EXAMPLES_NPZ_POSE_SCALE
+    os.makedirs(d, exist_ok=True)
+    for name, tree in trees.items():
+        np.savez(os.path.join(d, f"{name}.npz"), **weights._flatten(
+            tree, leaf=lambda t: t.detach().cpu().numpy()))
+
+
+def check_default_weights() -> dict:
+    """Every family's default weights drawn on the card and held to the
+    committed digest of the JAX package's draw -> {family: draw ms}."""
+    import torch
+
+    from scannertools_tpu_torch.tools import jax_defaults as JDF
+
+    ref = JDF.load_reference()
+    out, name = {}, card()
+    for family in JDF.FAMILIES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = JDF.draw(family, "cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        leaves = JDF.flat(tree)
+        if any(v.device.type != "cuda" for v in leaves.values()):
+            raise AssertionError(f"{family}: a leaf was drawn off the card")
+        worst = JDF.check_digest(JDF.digest(tree), ref[family])
+        n = sum(v.numel() for v in leaves.values())
+        out[family] = ms
+        log({"default_weights": family, "leaves": len(leaves),
+             "parameters": n, "draw_ms": ms, "worst_over_scale": worst,
+             "card": name})
+        del tree, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_examples(db: str) -> dict:
+    """Phase 12 -> {kernel: launches of the examples' kernel runs}; every
+    check raises."""
+    import subprocess
+
+    draw_ms = check_default_weights()
+    video = os.path.join(db, "examples.mp4")
+    write_examples_video(video)
+    npz = os.path.join(db, "examples_npz")
+    t0 = time.perf_counter()
+    write_examples_npz(npz)
+    log({"examples_npz_seconds": time.perf_counter() - t0})
+    out_json = os.path.join(db, "examples.json")
+    log_path = os.path.join(db, "examples_worker.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--examples-worker",
+             out_json, video, os.path.join(db, "examples"), npz, DEVICE],
+            stdout=f, stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            _reap(proc)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"examples worker rc {rc}:\n"
+                                 + f.read()[-4000:])
+    with open(out_json) as f:
+        result = json.load(f)
+    runs = result["runs"]
+    log({"run": "examples", "seconds": seconds, "draw_ms": draw_ms,
+         "runs": runs})
+    if result["jax_modules"]:
+        raise AssertionError(f"the alias loaded {result['jax_modules']}")
+    for tag, r in runs.items():
+        if not r["rows_equal_plain"]:
+            raise AssertionError(f"{tag}: rows differ from the plain "
+                                 f"kernels' run")
+        if any(r["plain_launches"].values()):
+            raise AssertionError(f"{tag}: the plain run launched "
+                                 f"{r['plain_launches']}")
+        if r["cuts"] is not None and any(
+                v != [EXAMPLES_CUTS] for v in r["cuts"].values()):
+            raise AssertionError(f"{tag}: cuts {r['cuts']}")
+        keeps = EXAMPLE_RUNS[tag][4]
+        for name, counts in r["rows"].items():
+            if any(counts):
+                continue
+            if keeps:
+                raise AssertionError(f"{tag}: {name} keeps no row, so "
+                                     f"its equality with the plain run "
+                                     f"shows nothing")
+            log({"examples_note": f"{EXAMPLE_RUNS[tag][0]}: "
+                 f"{name} keeps no row on default weights "
+                 f"({len(counts)} frames)"})
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in PLAIN_OF}
+    need = {"hist": total["hist_rgb"] + total["hist_i420"],
+            "nms": total["nms"],
+            "crop": total["crop_and_resize"]
+            + total["crop_and_resize_levels"],
+            "pose_peaks": total["find_peaks"]}
+    if not all(need.values()):
+        raise AssertionError(f"examples: a kernel never launched: {need}")
+    log({"examples_launches": total})
+    return total
 
 
 def main() -> int:
@@ -5370,6 +5718,8 @@ def main() -> int:
                      static_rows)
         if time.perf_counter() - t11 > PHASE11_SECONDS:
             raise AssertionError(f"phase 11 took over {PHASE11_SECONDS} s")
+        ex_launches = phase("12: default weights, examples", run_examples,
+                            db)
     finally:
         shutil.rmtree(db, ignore_errors=True)
 
@@ -5380,7 +5730,8 @@ def main() -> int:
                               "attributes": attr_launches,
                               "runners_storage_ctc": rest_launches,
                               "job_layer_weights_in": job_launches,
-                              "axes": axes["launches"]}})
+                              "axes": axes["launches"],
+                              "examples": ex_launches}})
     job_hist = sum(v.get("hist_rgb", 0) for v in job_launches.values())
     log({"timing": "crop_and_resize", "call": "pose_gray_hands", **gray})
     kernels = [
@@ -5388,14 +5739,16 @@ def main() -> int:
          "source": "scannertools_tpu_torch/kernels/csrc/histogram.cu",
          "replaces": "scannertools_tpu/ops/histogram.py:168",
          "launches": (launches["rgb"]["hist_rgb"] + job_hist
-                      + axes["launches"]["hist_rgb"]),
+                      + axes["launches"]["hist_rgb"]
+                      + ex_launches["hist_rgb"]),
          **records["hist_rgb"],
          "library_ms": None},
         {"name": "hist_i420", "route": "cuda",
          "source": "scannertools_tpu_torch/kernels/csrc/histogram.cu",
          "replaces": "scannertools_tpu/ops/histogram.py:260",
          "launches": (launches["i420"]["hist_i420"]
-                      + axes["launches"]["hist_i420"]),
+                      + axes["launches"]["hist_i420"]
+                      + ex_launches["hist_i420"]),
          **records["hist_i420"],
          "library_ms": None},
         {"name": "flow_update", "route": "cuda",
@@ -5410,7 +5763,7 @@ def main() -> int:
          "launches": (face_launches["nms"] + det_launches["nms"]
                       + mrcnn_launches["nms"] + attr_launches["nms"]
                       + job_launches["weights_in"]["nms"]
-                      + axes["launches"]["nms"]),
+                      + axes["launches"]["nms"] + ex_launches["nms"]),
          **records["nms"],
          "library_ms": None},
         {"name": "crop_and_resize", "route": "cuda",
@@ -5425,7 +5778,9 @@ def main() -> int:
                       + pose_launches["crop_and_resize"]
                       + attr_launches["crop_and_resize"]
                       + axes["launches"]["crop_and_resize"]
-                      + axes["launches"]["crop_and_resize_levels"]),
+                      + axes["launches"]["crop_and_resize_levels"]
+                      + ex_launches["crop_and_resize"]
+                      + ex_launches["crop_and_resize_levels"]),
          **records["crop_and_resize"]},
         # no single torch call finds local maxima with top_k's tie order;
         # yardstick_ms: max_pool2d -> where -> topk, the same peaks
@@ -5434,7 +5789,8 @@ def main() -> int:
          "replaces": "scannertools_tpu/models/pose.py:363",
          "launches": (pose_launches["pose_peaks"]
                       + job_launches["weights_in"]["pose_peaks"]
-                      + axes["launches"]["pose_peaks"]),
+                      + axes["launches"]["pose_peaks"]
+                      + ex_launches["find_peaks"]),
          **records["pose_peaks"],
          "library_ms": None},
         # ctc_loss sums paths (log-sum-exp); no torch call takes the best
@@ -5458,4 +5814,6 @@ if __name__ == "__main__":
         sys.exit(claims_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--static-slice"]:
         sys.exit(static_slice_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--examples-worker"]:
+        sys.exit(examples_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -235,10 +235,19 @@ def to_flax(state) -> Dict:
     return weights_lib.torch_to_flax(state, torch_mapping())
 
 
+def default_tree(key: torch.Tensor) -> Dict:
+    """The JAX package's ``init_params(key)``, drawn in torch on the key's
+    device (weights.draw_flax)."""
+    return weights_lib.draw_flax(key, weights_lib.flax_shapes(
+        torch_mapping(), _skeleton(FasterRCNN).state_dict()))
+
+
 def init_params(seed: int = 0) -> Dict[str, torch.Tensor]:
-    """A state_dict of deterministic random weights from a
-    ``torch.Generator`` seeded with ``seed`` (weights.init_state); not the
-    JAX package's values."""
+    """A state_dict of deterministic random weights from a ``torch.Generator``
+    seeded with ``seed`` (weights.init_state): the port's own seeded set
+    (phases 4-11 of chip_smoke.py are tuned to it); a model's default weights,
+    what an op draws without a ``weights_path``, are the JAX package's draw
+    (``default_tree``)."""
     shapes = {k: tuple(v.shape) for k, v in
               _skeleton(FasterRCNN).state_dict().items()}
     return weights_lib.init_state(shapes, torch.Generator().manual_seed(seed))

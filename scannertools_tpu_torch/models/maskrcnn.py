@@ -56,7 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.numerics import div, resize_hw
-from . import porting_maps
+from . import jax_random, porting_maps
 from . import weights as weights_lib
 from .common import (FPN_STRIDES, _skeleton, batch_norm,
                      crop_and_resize_levels, full_f32, nms, topk_stable)
@@ -455,11 +455,68 @@ def to_flax(state, arch: str = "R-50-FPN") -> Dict:
     return weights_lib.torch_to_flax(state, torch_mapping(arch))
 
 
+def init_shapes(arch: str = "X-101-32x8d-FPN") -> Dict:
+    """The JAX package's ``MaskRCNNModel`` variables tree ({'trunk', 'box',
+    'mask'}) as shapes with no data: each leaf a tensor on the meta device
+    in the flax layout (what the JAX package's ``init_shapes`` gives as
+    shape structs)."""
+    shapes = weights_lib.flax_shapes(torch_mapping(arch),
+                                     _skeleton(MaskRCNN, arch).state_dict())
+    return weights_lib._unflatten({p: torch.empty(s, device="meta")
+                                   for p, s in shapes.items()})
+
+
+def default_tree(key: torch.Tensor, arch: str = "R-50-FPN") -> Dict:
+    """The JAX package's ``MaskRCNNModel(key, arch).variables``, drawn in
+    torch on the key's device: the trunk ``init`` on ``key``, the box and
+    mask heads on the two keys of ``split(key)``."""
+    shapes = weights_lib.flax_shapes(torch_mapping(arch),
+                                     _skeleton(MaskRCNN, arch).state_dict())
+    k_box, k_mask = jax_random.split(key)
+    out = {}
+    for part, root in (("trunk", key), ("box", k_box), ("mask", k_mask)):
+        out[part] = weights_lib.draw_flax(root, {
+            p.split("/", 1)[1]: s for p, s in shapes.items()
+            if p.split("/", 1)[0] == part})
+    return out
+
+
+class MaskRCNNModel:
+    """The JAX package's parameter container: ``variables`` is its tree
+    ({'trunk', 'box', 'mask'}, flax layout: what ``save_params`` writes
+    and ``weights_path`` reads), drawn as the JAX package draws it from
+    ``rng`` (a ``jax_random`` key, or an int seed for
+    ``jax_random.prng_key``) on ``device`` (None: the card, as a
+    ``Client``'s; a key is drawn on its own device); ``infer`` runs the
+    port's forward on a variables tree."""
+
+    def __init__(self, rng=0, arch: str = "R-50-FPN",
+                 pre_nms: int = PRE_NMS, post_nms: int = POST_NMS,
+                 max_det: int = MAX_DET, device=None):
+        from ..client import _resolve_device
+
+        key = rng if isinstance(rng, torch.Tensor) else \
+            jax_random.prng_key(rng, _resolve_device(device))
+        self.arch = arch
+        self.pre_nms, self.post_nms = int(pre_nms), int(post_nms)
+        self.max_det = int(max_det)
+        self.variables = default_tree(key, arch)
+
+    def infer(self, variables, images: torch.Tensor):
+        """images: [B, H, W, 3] canvases (``preprocess``) -> (boxes [B,
+        max_det, 4] canvas px, scores, labels, masks [B, max_det, 28,
+        28])."""
+        return infer(from_flax(variables, self.arch), images, self.arch,
+                     self.pre_nms, self.post_nms, self.max_det)
+
+
 def init_params(seed: int = 0,
                 arch: str = "R-50-FPN") -> Dict[str, torch.Tensor]:
-    """A state_dict of deterministic random weights from a
-    ``torch.Generator`` seeded with ``seed`` (weights.init_state); not the
-    JAX package's values."""
+    """A state_dict of deterministic random weights from a ``torch.Generator``
+    seeded with ``seed`` (weights.init_state): the port's own seeded set
+    (phases 4-11 of chip_smoke.py are tuned to it); a model's default weights,
+    what an op draws without a ``weights_path``, are the JAX package's draw
+    (``default_tree``)."""
     shapes = {k: tuple(v.shape) for k, v in
               _skeleton(MaskRCNN, arch).state_dict().items()}
     return weights_lib.init_state(shapes, torch.Generator().manual_seed(seed))

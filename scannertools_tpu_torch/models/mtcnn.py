@@ -43,9 +43,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.numerics import div, resize_hw
-from . import porting_maps
+from . import jax_random, porting_maps
 from . import weights as weights_lib
-from .common import (apply_net, crop_and_resize, max_pool_same, nms,
+from .common import (_skeleton, apply_net, crop_and_resize, max_pool_same, nms,
                      topk_boxes, topk_stable)
 
 # cascade capacities (padded sizes)
@@ -185,10 +185,26 @@ def to_flax(state) -> Dict:
     return out
 
 
+def default_tree(key: torch.Tensor) -> Dict:
+    """The JAX package's ``init_params(key)``, drawn in torch on the key's
+    device: P-, R- and O-Net each ``init`` on one of ``split(key, 3)``,
+    their params alone."""
+    out = {}
+    for net_key, (net, cls) in zip(jax_random.split(key, 3), NETS.items()):
+        shapes = weights_lib.flax_shapes(torch_mapping(net),
+                                         _skeleton(cls).state_dict())
+        out[net] = weights_lib.draw_flax(
+            net_key, {p.split("/", 1)[1]: s for p, s in shapes.items()},
+            collections=False)
+    return out
+
+
 def init_params(seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
     """{net: state_dict} of deterministic random weights from a
-    ``torch.Generator`` seeded with ``seed`` (weights.init_state); not the
-    JAX package's values."""
+    ``torch.Generator`` seeded with ``seed`` (weights.init_state): the port's
+    own seeded set (phases 4-11 of chip_smoke.py are tuned to it); a model's
+    default weights, what an op draws without a ``weights_path``, are the JAX
+    package's draw (``default_tree``)."""
     gen = torch.Generator().manual_seed(seed)
     out = {}
     for net, cls in NETS.items():

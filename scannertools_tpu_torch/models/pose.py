@@ -374,8 +374,10 @@ def _init(cls, seed: int, *init) -> Dict[str, torch.Tensor]:
 
 def init_params(seed: int = 0, stages: int = 6) -> Dict[str, torch.Tensor]:
     """Deterministic random OpenPoseBody weights from a ``torch.Generator``
-    seeded with ``seed`` (weights.init_state); not the JAX package's
-    values."""
+    seeded with ``seed`` (weights.init_state): the port's own seeded set
+    (phases 4-11 of chip_smoke.py are tuned to it); a model's default weights,
+    what an op draws without a ``weights_path``, are the JAX package's draw
+    (``default_tree``)."""
     return _init(OpenPoseBody, seed, stages)
 
 
@@ -387,14 +389,33 @@ def init_hand_params(seed: int = 0, stages: int = 6):
     return _init(OpenPoseCrop, seed, HAND_KEYPOINTS + 1, stages)
 
 
+def default_tree(key: torch.Tensor, stages: int = 6) -> Dict:
+    """The JAX package's ``init_params(key, stages)`` (OpenPoseBody),
+    drawn in torch on the key's device (weights.draw_flax)."""
+    return weights_lib.draw_flax(key, weights_lib.flax_shapes(
+        porting_maps.openpose_mapping(stages),
+        _skeleton(OpenPoseBody, stages).state_dict()))
+
+
+def crop_default_tree(key: torch.Tensor, n_out: int,
+                      stages: int = 6) -> Dict:
+    """The JAX package's ``OpenPoseCrop(n_out, stages).init(key, ...)``
+    (``init_face_params``/``init_hand_params``), drawn in torch."""
+    return weights_lib.draw_flax(key, weights_lib.flax_shapes(
+        porting_maps.openpose_crop_mapping(stages),
+        _skeleton(OpenPoseCrop, n_out, stages).state_dict()))
+
+
 # the crop nets as the ops' weight loaders see a model: init_params,
-# from_flax, to_flax
-FACE_NET = types.SimpleNamespace(init_params=init_face_params,
-                                 from_flax=crop_from_flax,
-                                 to_flax=crop_to_flax)
-HAND_NET = types.SimpleNamespace(init_params=init_hand_params,
-                                 from_flax=crop_from_flax,
-                                 to_flax=crop_to_flax)
+# default_tree, from_flax, to_flax
+FACE_NET = types.SimpleNamespace(
+    init_params=init_face_params,
+    default_tree=lambda key: crop_default_tree(key, FACE_KEYPOINTS + 1),
+    from_flax=crop_from_flax, to_flax=crop_to_flax)
+HAND_NET = types.SimpleNamespace(
+    init_params=init_hand_params,
+    default_tree=lambda key: crop_default_tree(key, HAND_KEYPOINTS + 1),
+    from_flax=crop_from_flax, to_flax=crop_to_flax)
 
 
 class _CropFront(nn.Module):

@@ -208,6 +208,16 @@ def _postprocess_explicit(b: torch.Tensor, s: torch.Tensor, l: torch.Tensor,
     return boxes, ks, torch.where(kept, l.gather(-1, src), 0)
 
 
+def postprocess(loc: torch.Tensor, cls_logits: torch.Tensor,
+                iou_thresh: float = IOU_THRESH):
+    """One frame: loc [N, 4], cls [N, C+1] -> (boxes [100, 4] xyxy
+    normalized, scores [100], classes [100] int32 1..90): the decode and
+    NMS of ``detect`` (its ``nms`` call on the logits' device)."""
+    out = _postprocess_explicit(*_prefilter(loc[None], cls_logits[None]),
+                                iou_thresh)
+    return tuple(x[0] for x in out)
+
+
 def detect(state, frames_f32: torch.Tensor):
     """frames: [T, H, W, 3] raw [0,255] -> (boxes [T,100,4] xyxy normalized,
     scores [T,100], classes [T,100] int32)."""
@@ -249,10 +259,19 @@ def to_flax(state) -> Dict:
     return weights_lib.torch_to_flax(state, torch_mapping())
 
 
+def default_tree(key: torch.Tensor) -> Dict:
+    """The JAX package's ``init_params(key)``, drawn in torch on the key's
+    device (weights.draw_flax)."""
+    return weights_lib.draw_flax(key, weights_lib.flax_shapes(
+        torch_mapping(), _skeleton(SSDMobileNetV1).state_dict()))
+
+
 def init_params(seed: int = 0) -> Dict[str, torch.Tensor]:
-    """A state_dict of deterministic random weights from a
-    ``torch.Generator`` seeded with ``seed`` (weights.init_state); not the
-    JAX package's values."""
+    """A state_dict of deterministic random weights from a ``torch.Generator``
+    seeded with ``seed`` (weights.init_state): the port's own seeded set
+    (phases 4-11 of chip_smoke.py are tuned to it); a model's default weights,
+    what an op draws without a ``weights_path``, are the JAX package's draw
+    (``default_tree``)."""
     shapes = {k: tuple(v.shape) for k, v in
               _skeleton(SSDMobileNetV1).state_dict().items()}
     return weights_lib.init_state(shapes, torch.Generator().manual_seed(seed))

@@ -296,8 +296,10 @@ def _init(attributes, seed: int) -> Dict[str, torch.Tensor]:
 
 def init_params_clothing(seed: int = 0) -> Dict[str, torch.Tensor]:
     """Deterministic random weights of the 16-head net from a
-    ``torch.Generator`` seeded with ``seed`` (weights.init_state); not the
-    JAX package's values."""
+    ``torch.Generator`` seeded with ``seed`` (weights.init_state): the port's
+    own seeded set (phases 4-11 of chip_smoke.py are tuned to it); a model's
+    default weights, what an op draws without a ``weights_path``, are the JAX
+    package's draw (``default_tree``)."""
     return _init(CLOTHING_ATTRIBUTES, seed)
 
 
@@ -305,9 +307,22 @@ def init_params_hairstyle(seed: int = 0) -> Dict[str, torch.Tensor]:
     return _init(HAIRSTYLE_ATTRIBUTES, seed)
 
 
+def default_tree(key: torch.Tensor, attributes) -> Dict:
+    """The JAX package's ``init_params_clothing``/``_hairstyle(key)`` (the
+    net of ``attributes``' heads), drawn in torch on the key's device."""
+    sizes = head_sizes(attributes)
+    return weights_lib.draw_flax(key, weights_lib.flax_shapes(
+        torch_mapping(len(sizes)),
+        _skeleton(MultiHeadAttributeNet, sizes).state_dict()))
+
+
 # the two head sets as the ops' weight loaders see a model: init_params,
-# from_flax, to_flax
-CLOTHING = types.SimpleNamespace(init_params=init_params_clothing,
-                                 from_flax=from_flax, to_flax=to_flax)
-HAIRSTYLE = types.SimpleNamespace(init_params=init_params_hairstyle,
-                                  from_flax=from_flax, to_flax=to_flax)
+# default_tree, from_flax, to_flax
+CLOTHING = types.SimpleNamespace(
+    init_params=init_params_clothing,
+    default_tree=lambda key: default_tree(key, CLOTHING_ATTRIBUTES),
+    from_flax=from_flax, to_flax=to_flax)
+HAIRSTYLE = types.SimpleNamespace(
+    init_params=init_params_hairstyle,
+    default_tree=lambda key: default_tree(key, HAIRSTYLE_ATTRIBUTES),
+    from_flax=from_flax, to_flax=to_flax)

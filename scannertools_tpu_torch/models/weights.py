@@ -33,16 +33,19 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from . import jax_random
+
 
 # ------------------------------------------------------------- npz persist
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Any, prefix: str = "", leaf=np.asarray
+             ) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     if isinstance(tree, Mapping):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
+            out.update(_flatten(v, f"{prefix}{k}/", leaf))
     else:
-        out[prefix[:-1]] = np.asarray(tree)
+        out[prefix[:-1]] = leaf(tree)
     return out
 
 
@@ -123,6 +126,14 @@ _KIND_FNS = {
 }
 
 
+def as_f32(v) -> torch.Tensor:
+    """A leaf (numpy, npz-loaded or a tensor) -> a float32 tensor; a
+    tensor stays on its device."""
+    if isinstance(v, torch.Tensor):
+        return v.float()
+    return torch.from_numpy(np.array(v, np.float32))
+
+
 def _numpy(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         return t.detach().cpu().numpy()
@@ -160,23 +171,44 @@ def _chw(kind: str) -> Tuple[int, int, int]:
     return c, h, w
 
 
-def _to_torch(kind: str, a: np.ndarray) -> np.ndarray:
-    """A flax-layout leaf -> the torch layout of ``kind`` (the inverse of
-    _KIND_FNS and of porting_maps.linear_after_conv)."""
+def _perm(a, axes):
+    return a.permute(*axes) if isinstance(a, torch.Tensor) \
+        else np.transpose(a, axes)
+
+
+def _to_torch(kind: str, a):
+    """A flax-layout leaf (numpy, or a tensor on any device) -> the torch
+    layout of ``kind`` (the inverse of _KIND_FNS and of
+    porting_maps.linear_after_conv)."""
     if kind in ("conv", "tf_conv"):  # HWIO -> OIHW
-        return np.transpose(a, (3, 2, 0, 1))
+        return _perm(a, (3, 2, 0, 1))
     if kind == "conv_transpose":  # HWIO, mirrored -> IOHW
-        return np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
+        a = a.flip(0, 1) if isinstance(a, torch.Tensor) else a[::-1, ::-1]
+        return _perm(a, (2, 3, 0, 1))
     if kind == "linear":
-        return np.transpose(a, (1, 0))
+        return _perm(a, (1, 0))
     if kind.startswith("linear_conv:"):  # [H*W*C, O] -> [O, C*H*W]
         c, h, w = _chw(kind)
         o = a.shape[1]
-        return a.reshape(h, w, c, o).transpose(3, 2, 0, 1).reshape(
+        return _perm(a.reshape(h, w, c, o), (3, 2, 0, 1)).reshape(
             o, c * h * w)
     if kind == "raw":
         return a
     raise ValueError(f"no torch layout for weight kind {kind!r}")
+
+
+def _flax_shape(kind: str, s: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The flax-layout shape of a torch-layout leaf of ``kind`` (what
+    ``_to_flax`` gives, with no data)."""
+    if kind in ("conv", "tf_conv"):
+        return (s[2], s[3], s[1], s[0])
+    if kind == "conv_transpose":
+        return (s[2], s[3], s[0], s[1])
+    if kind == "linear" or kind.startswith("linear_conv:"):
+        return (s[1], s[0])
+    if kind == "raw":
+        return tuple(s)
+    raise ValueError(f"no flax layout for weight kind {kind!r}")
 
 
 def _to_flax(kind: str, a: np.ndarray) -> np.ndarray:
@@ -198,16 +230,24 @@ def flax_to_torch(variables: Any, mapping: Mapping[str, Tuple[str, str]],
     """A flax-layout tree -> {torch key: float tensor} through ``mapping``
     ({flax path: (torch key, kind)}), plus ``extra`` entries the flax tree
     has no counterpart of. Every mapped flax path must exist (KeyError);
-    the result's order is the mapping's."""
-    flat = _flatten(variables)
+    the result's order is the mapping's. Tensor leaves stay on their
+    device, and the ``extra`` entries join them there."""
+    flat = _flatten(variables, leaf=lambda v: v if isinstance(
+        v, torch.Tensor) else np.asarray(v))
     out: Dict[str, torch.Tensor] = {}
+    device = None
     for flax_key, (torch_key, kind) in mapping.items():
         if flax_key not in flat:
             raise KeyError(f"flax param {flax_key!r} not in variables tree")
-        a = _to_torch(kind, np.asarray(flat[flax_key], np.float32))
-        out[torch_key] = torch.from_numpy(np.ascontiguousarray(a))
+        leaf = flat[flax_key]
+        if isinstance(leaf, torch.Tensor):
+            device = leaf.device
+            out[torch_key] = _to_torch(kind, leaf.float()).contiguous()
+        else:
+            a = _to_torch(kind, np.asarray(leaf, np.float32))
+            out[torch_key] = torch.from_numpy(np.ascontiguousarray(a))
     for k, v in (extra or {}).items():
-        out[k] = v
+        out[k] = v if device is None else v.to(device)
     return out
 
 
@@ -224,12 +264,12 @@ def torch_to_flax(state_dict: Mapping[str, Any],
 def init_state(shapes: Mapping[str, Tuple[int, ...]],
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Deterministic random weights for a module's state_dict shapes, in
-    key order from ``generator``: conv and dense weights LeCun normal
-    (std 1/sqrt(fan in), as flax initializes kernels), biases and BatchNorm
-    shifts and means 0, BatchNorm scales and variances 1, PReLU slopes 0.25
-    (keys ending in "prelu<n>.weight"). Not the JAX package's values: those
-    come from jax.random; the parity route is an npz the JAX package
-    wrote."""
+    key order from ``generator``: conv and dense weights normal with std
+    1/sqrt(fan in) of the torch layout, biases and BatchNorm shifts and
+    means 0, BatchNorm scales and variances 1, PReLU slopes 0.25 (keys
+    ending in "prelu<n>.weight"). This is the port's own seeded set (each
+    model's ``init_params(seed)``); a model's default weights are the JAX
+    package's draw, ``default_params``."""
     out: Dict[str, torch.Tensor] = {}
     for key, shape in shapes.items():
         leaf = key.rsplit(".", 1)[-1]
@@ -247,3 +287,60 @@ def init_state(shapes: Mapping[str, Tuple[int, ...]],
         else:  # bias, running_mean
             out[key] = torch.zeros(shape)
     return out
+
+
+# -------------------------------------- the JAX package's default draw
+
+def flax_shapes(mapping: Mapping[str, Tuple[str, str]],
+                torch_shapes: Mapping[str, Any]) -> Dict[str, Tuple]:
+    """{flax path: flax-layout shape} of a mapping's tree, from the torch
+    shapes (a state_dict, on the meta device or any other): the tree
+    ``torch_to_flax`` would give, with no data."""
+    return {path: _flax_shape(kind, tuple(torch_shapes[tk].shape))
+            for path, (tk, kind) in mapping.items()}
+
+
+# the constant leaves by name: biases and BatchNorm shifts 0, BatchNorm
+# scales 1, the MTCNN PReLU's slopes 0.25, batch statistics' means 0 and
+# variances 1 (a kernel is the one leaf a flax layer draws)
+_CONSTANTS = {"bias": 0.0, "scale": 1.0, "alpha": 0.25, "mean": 0.0,
+              "var": 1.0}
+
+
+def draw_flax(key: torch.Tensor, shapes: Mapping[str, Tuple],
+              collections: bool = True) -> Dict[str, Any]:
+    """One flax ``Module.init(key, ...)``, drawn in torch on the key's
+    device: ``shapes`` is its flat tree {"params/<scope...>/<leaf>":
+    shape, "batch_stats/<scope...>/<leaf>": shape} (``collections``
+    False: a tree of params alone, its paths without "params/"). Every
+    ``Dense``, ``Conv`` and ``ConvTranspose`` kernel is LeCun normal on
+    the root key folded with its scope path and its ``make_rng("params")``
+    counter, 1: a layer creates its kernel first, its bias second (flax's
+    ``_fold_in_static``); the other leaves are constants."""
+    flat: Dict[str, torch.Tensor] = {}
+    for path, shape in shapes.items():
+        parts = path.split("/")
+        if collections and parts[0] not in ("params", "batch_stats"):
+            raise ValueError(f"no initializer for collection {parts[0]!r}")
+        scope = tuple(parts[1 if collections else 0:-1])
+        if parts[-1] == "kernel":
+            flat[path] = jax_random.lecun_normal(
+                jax_random.fold_in_static(key, scope + (1,)), shape)
+        elif parts[-1] in _CONSTANTS:
+            flat[path] = jax_random.constant(
+                None, shape, _CONSTANTS[parts[-1]], key.device)
+        else:
+            raise ValueError(f"no initializer for {path!r}")
+    return _unflatten(flat)
+
+
+def default_params(lib, *arch, device=None):
+    """A model's default weights: the JAX package's ``init_*(
+    jax.random.PRNGKey(0))`` for it, drawn in torch on ``device`` (None:
+    the card, as a ``Client``'s) by ``lib.default_tree`` and turned into
+    the port's weights by ``lib.from_flax``. ``arch``: the model's arch
+    argument, where it has one (Mask R-CNN's name, MoE's dims)."""
+    from ..client import _resolve_device
+
+    key = jax_random.prng_key(0, _resolve_device(device))
+    return lib.from_flax(lib.default_tree(key, *arch), *arch)

@@ -21,9 +21,10 @@ the detectors and the crop nets. Any other bbox source goes through the
 
 Weights: ``weights_path`` names an npz in the JAX package's layout (what
 its ``models/weights.save_params`` writes, or this package's); the same
-file gives both packages the same weights. Without one, each model is
-initialized from a ``torch.Generator`` seeded with 0: deterministic, but
-not the JAX package's random values (those come from ``jax.random``).
+file gives both packages the same weights. Without one, each model takes
+the JAX package's default weights, its ``init_*(jax.random.PRNGKey(0))``
+drawn in torch on the run's device (``models/jax_random.py``,
+``weights.default_params``), so both packages run the same nets.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ _MODEL_CACHE: Dict[Any, Any] = {}
 
 MAX_FACES = mtcnn_lib.MAX_FACES
 
-# name -> the model's module (init_params, from_flax, to_flax), for every
+# name -> the model's module (init_params, default_tree, from_flax,
+# to_flax), for every
 # op that loads weights (the detection ops of objects.py and nn_generic.py,
 # the pose, attribute and landmark ops too). The face and hand crop nets
 # share OpenPoseCrop but never their weights, nor do the two attribute
@@ -74,12 +76,17 @@ _MODELS = {"mtcnn": mtcnn_lib, "facenet": facenet_lib, "gender": gender_lib,
            "moe": expert_lib.MOE}
 
 
-def _get_params(model: str, weights_path: Optional[str], arch=None):
-    """The model's weights as torch tensors on the CPU, once per (model,
+def _get_params(model: str, weights_path: Optional[str], arch=None,
+                device="cpu"):
+    """The model's weights as torch tensors, once per (model,
     weights_path), and per arch for a model built in several (Mask R-CNN:
-    the arch name fixes the tree; MoE: its dims)."""
+    the arch name fixes the tree; MoE: its dims). An npz is read to the
+    CPU; without one the default weights (``weights.default_params``) are
+    drawn on ``device``, once per device."""
     key = (model, weights_path) if arch is None else (model, weights_path,
                                                       arch)
+    if not weights_path:
+        key += (str(torch.device(device)),)
     if key not in _MODEL_CACHE:
         lib = _MODELS[model]
         extra = () if arch is None else (arch,)
@@ -87,8 +94,16 @@ def _get_params(model: str, weights_path: Optional[str], arch=None):
             _MODEL_CACHE[key] = lib.from_flax(
                 weights_lib.load_params(weights_path), *extra)
         else:
-            _MODEL_CACHE[key] = lib.init_params(0, *extra)
+            _MODEL_CACHE[key] = weights_lib.default_params(
+                lib, *extra, device=device)
     return _MODEL_CACHE[key]
+
+
+def _weights_device(ctx) -> torch.device:
+    """The device an op's default weights are drawn on (its aux): the
+    run's; with no context, a direct call outside an executor, the CPU
+    (the executor moves an aux tree to each device it runs on)."""
+    return torch.device("cpu") if ctx is None else _run_device(ctx)
 
 
 def _device_state(model: str, weights_path, device: torch.device,
@@ -99,8 +114,8 @@ def _device_state(model: str, weights_path, device: torch.device,
     attribute classifiers, the landmarks) move its weights themselves."""
     key = ("device", model, weights_path, arch, str(device))
     if key not in _MODEL_CACHE:
-        _MODEL_CACHE[key] = _tree_to(_get_params(model, weights_path, arch),
-                                     device)
+        _MODEL_CACHE[key] = _tree_to(
+            _get_params(model, weights_path, arch, device), device)
     return _MODEL_CACHE[key]
 
 
@@ -163,7 +178,8 @@ def _host_crops(frames: np.ndarray, bboxes, crop_fn):
 # --------------------------------------------------------------- MTCNN
 
 def _mtcnn_aux(ctx, params):
-    return _get_params("mtcnn", params.get("weights_path"))
+    return _get_params("mtcnn", params.get("weights_path"),
+                       device=_weights_device(ctx))
 
 
 @register_op("MTCNNForward", kind="device", aux=_mtcnn_aux,
@@ -316,7 +332,8 @@ def _net_rows(fwd, aux, crops: torch.Tensor):
 
 
 def _facenet_aux(ctx, params):
-    return _get_params("facenet", params.get("weights_path"))
+    return _get_params("facenet", params.get("weights_path"),
+                       device=_weights_device(ctx))
 
 
 @register_op("FaceEmbedForward", kind="device", aux=_facenet_aux,
@@ -381,7 +398,8 @@ def _build_embed(inputs, params, device):
 # ------------------------------------------------------------- DetectGender
 
 def _gender_aux(ctx, params):
-    return _get_params("gender", params.get("weights_path"))
+    return _get_params("gender", params.get("weights_path"),
+                       device=_weights_device(ctx))
 
 
 @register_op("GenderForward", kind="device", aux=_gender_aux,

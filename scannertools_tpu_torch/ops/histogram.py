@@ -346,3 +346,15 @@ def _histogram_local(frames) -> torch.Tensor:
         return hist_i420(frames.flat, frames.h, frames.w,
                          frames.full_range, frames.bt709)
     return hist_rgb(frames.flat, frames.npix, frames.c)
+
+
+def histogram_reference_np(frames: np.ndarray) -> np.ndarray:
+    """Host golden model (cv::calcHist semantics) for parity tests: uint8
+    [T, H, W, 3] -> int32 [T, 3, BINS]."""
+    T = frames.shape[0]
+    out = np.zeros((T, 3, BINS), np.int32)
+    for t in range(T):
+        for c in range(3):
+            out[t, c] = np.bincount(
+                frames[t, :, :, c].reshape(-1) >> 4, minlength=BINS)
+    return out

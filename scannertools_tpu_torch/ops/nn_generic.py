@@ -33,7 +33,7 @@ from ..registry import register_op
 from ..utils.framechunk import as_hwc_f32
 from ..utils.net_descriptor import NetDescriptor
 from ..utils.numerics import div, resize_hw
-from .faces import _MODEL_CACHE, _MODELS, _get_params
+from .faces import _MODEL_CACHE, _MODELS, _get_params, _weights_device
 
 
 def _openpose_maps(state, x: torch.Tensor):
@@ -75,6 +75,12 @@ class _RegisteredWeights:
 
     def __init__(self, init_fn: Callable):
         self.init_params = init_fn
+
+    def default_tree(self, key):
+        """A registered model's default weights are its own ``init_fn(0)``
+        (the JAX package's registry calls it with ``PRNGKey(0)``); the
+        key is not used."""
+        return self.init_params(0)
 
     @staticmethod
     def from_flax(tree):
@@ -151,7 +157,8 @@ def _nn_aux(ctx, params):
     model, weights_path = _resolve_descriptor(
         params.get("model", ""), params.get("descriptor_path", ""),
         params.get("weights_path"))
-    return _get_params(get_model(model)[0], weights_path)
+    return _get_params(get_model(model)[0], weights_path,
+                       device=_weights_device(ctx))
 
 
 def _nn_batch_local(params) -> bool:
@@ -189,7 +196,8 @@ def _moe_dims(params) -> Tuple[int, int, int]:
 
 
 def _moe_aux(ctx, params):
-    return _get_params("moe", params.get("weights_path"), _moe_dims(params))
+    return _get_params("moe", params.get("weights_path"), _moe_dims(params),
+                       _weights_device(ctx))
 
 
 @register_op("MoEHead", kind="device", aux=_moe_aux, outputs=("array_f32",),
@@ -236,7 +244,8 @@ def moe_head(ctx, aux, input, n_experts: int = 8, d_model: int = 0,
 
 def _frcnn_aux(ctx, params):
     return _get_params(get_model("faster_rcnn")[0],
-                       params.get("weights_path"))
+                       params.get("weights_path"),
+                       device=_weights_device(ctx))
 
 
 @register_op("FasterRCNN", kind="device", aux=_frcnn_aux,

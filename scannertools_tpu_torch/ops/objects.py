@@ -11,8 +11,10 @@ same as ops/faces.py): each composite expands into a device-kind forward
 emitting fixed-shape padded arrays and a host decode that wraps protos or
 pastes masks. Weights enter the forward as the op's aux tree (a state_dict
 of tensors the executor moves to the device once); ``weights_path`` names
-an npz in the JAX package's layout, and without one the port draws its own
-weights from a ``torch.Generator`` seeded 0.
+an npz in the JAX package's layout, and without one the port draws the
+JAX package's default weights (its ``init_params(PRNGKey(0))`` and
+``MaskRCNNModel(PRNGKey(0))``) in torch on the run's device
+(``weights.default_params``).
 """
 
 from __future__ import annotations
@@ -29,11 +31,12 @@ from ..models import ssd as ssd_lib
 from ..registry import register_composite, register_op
 from ..utils.framechunk import as_hwc_f32
 from ..utils.numerics import recip
-from .faces import _get_params
+from .faces import _get_params, _weights_device
 
 
 def _ssd_aux(ctx, params):
-    return _get_params("ssd", params.get("weights_path"))
+    return _get_params("ssd", params.get("weights_path"),
+                       device=_weights_device(ctx))
 
 
 @register_op("SSDForward", kind="device", aux=_ssd_aux,
@@ -80,7 +83,7 @@ def _build_detect_objects(inputs, params, device):
 
 def _maskrcnn_aux(ctx, params):
     return _get_params("maskrcnn", params.get("weights_path"),
-                       params.get("arch", "R-50-FPN"))
+                       params.get("arch", "R-50-FPN"), _weights_device(ctx))
 
 
 @register_op("MaskRCNNForward", kind="device", aux=_maskrcnn_aux,

@@ -37,7 +37,8 @@ from ..registry import register_composite, register_op
 from ..types import register_type
 from ..utils.framechunk import FrameChunk, as_hwc_f32
 from ..utils.numerics import div, resize_hw
-from .faces import _device_state, _get_params, _run_device
+from .faces import (_device_state, _get_params, _run_device,
+                    _weights_device)
 
 
 class Pose:
@@ -249,7 +250,8 @@ def _on_device(ctx, x) -> torch.Tensor:
 
 
 def _openpose_aux(ctx, params):
-    return _get_params("openpose", params.get("weights_path"))
+    return _get_params("openpose", params.get("weights_path"),
+                       device=_weights_device(ctx))
 
 
 @register_op("OpenPoseForward", kind="device", aux=_openpose_aux,

@@ -21,13 +21,15 @@ from __future__ import annotations
 
 import math
 import tempfile
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models import jax_random
 from ..models.common import same_pad
+from ..models.weights import as_f32
 from .expert import _he_normal
 from .mesh import Mesh, local_devices, make_mesh
 
@@ -37,8 +39,9 @@ _KEYS = ("conv1", "conv2", "proj", "cls")
 def init_params(seed: int = 0, c_in: int = 3, width: int = 64,
                 embed: int = 128) -> Dict[str, torch.Tensor]:
     """He-normal weights from a ``torch.Generator`` seeded with ``seed``
-    (not the JAX package's values): convolutions OIHW, ``proj`` [width,
-    embed], ``cls`` [embed, 32]."""
+    (the port's own seeded set; the dry run's default is the JAX
+    package's draw, ``default_params``): convolutions OIHW, ``proj``
+    [width, embed], ``cls`` [embed, 32]."""
     gen = torch.Generator().manual_seed(seed)
     hwio = {"conv1": (3, 3, c_in, width), "conv2": (3, 3, width, width),
             "proj": (width, embed), "cls": (embed, 32)}
@@ -46,12 +49,32 @@ def init_params(seed: int = 0, c_in: int = 3, width: int = 64,
                       for k, s in hwio.items()})
 
 
+def default_tree(key: torch.Tensor, c_in: int = 3, width: int = 64,
+                 embed: int = 128) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``init_params(key)``, drawn in torch on the key's
+    device: He-normal on the four keys of ``split(key, 4)``, HWIO."""
+    hwio = {"conv1": (3, 3, c_in, width), "conv2": (3, 3, width, width),
+            "proj": (width, embed), "cls": (embed, 32)}
+    return {k: jax_random.he_normal(sub, s) for sub, (k, s) in
+            zip(jax_random.split(key, 4), hwio.items())}
+
+
+def default_params(device=None) -> Dict[str, torch.Tensor]:
+    """The dry run's default weights: the JAX package's ``init_params(
+    jax.random.PRNGKey(0))``, drawn on ``device`` (None: the card, as a
+    ``Client``'s)."""
+    from ..client import _resolve_device
+
+    return from_flax(default_tree(jax_random.prng_key(
+        0, _resolve_device(device))))
+
+
 def from_flax(tree) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``init_params`` tree (numpy) -> the port's: HWIO
-    convolutions to OIHW, the dense matrices as they are."""
+    """The JAX package's ``init_params`` tree (numpy or tensors) -> the
+    port's: HWIO convolutions to OIHW, the dense matrices as they are."""
     out = {}
     for k in _KEYS:
-        a = torch.from_numpy(np.array(tree[k], np.float32))
+        a = as_f32(tree[k])
         out[k] = a.permute(3, 2, 0, 1).contiguous() if a.dim() == 4 else a
     return out
 
@@ -108,30 +131,54 @@ def _data(batch: int, hw: int):
     return torch.from_numpy(frames), torch.from_numpy(labels)
 
 
+def param_shardings(mesh: Mesh) -> Dict[str, tuple]:
+    """Each dry-run parameter's placement on ``mesh``, as the JAX
+    package's PartitionSpecs give it: for each axis of the parameter, the
+    mesh axis it is split over (None: whole on every device). The
+    convolutions are replicated, ``proj``'s columns and ``cls``'s rows
+    split over the 'model' axis; ``sharded_train_step`` places them so."""
+    if "model" not in mesh.axis_names:
+        raise ValueError(f"the mesh {mesh.axis_names} has no 'model' axis")
+    return {"conv1": (None, None, None, None),
+            "conv2": (None, None, None, None),
+            "proj": (None, "model"), "cls": ("model", None)}
+
+
+def _place(params, mesh: Mesh) -> Dict[str, Any]:
+    """Each parameter where ``param_shardings`` puts it, as a leaf that
+    takes a gradient: a whole one on mesh[0, 0] (a data row copies it to
+    its device), a split one as its slices along the split axis, slice j
+    on mesh[0, j]."""
+    out = {}
+    for k, spec in param_shardings(mesh).items():
+        leaf = params[k].detach()
+        if "model" in spec:
+            out[k] = [part.to(mesh.devices[0, j]).requires_grad_(True)
+                      for j, part in enumerate(leaf.chunk(
+                          mesh.devices.shape[1], spec.index("model")))]
+        else:
+            out[k] = leaf.to(mesh.devices[0, 0]).requires_grad_(True)
+    return out
+
+
 def sharded_train_step(params, frames, labels, mesh: Mesh,
                        lr: float = 1e-2):
     """One step over a (data, model) mesh -> (new params, loss): the
-    convolutions replicated (one leaf on mesh[0, 0], copied to each data
-    row), ``proj``'s columns and ``cls``'s rows split over the model
-    axis, a batch slice per data row."""
+    parameters placed by ``param_shardings`` (``_place``), a batch slice
+    per data row."""
     D, M = mesh.devices.shape
     home = mesh.devices[0, 0]
     embed = params["proj"].shape[1]
     if embed % M or frames.shape[0] % D:
         raise ValueError(f"the mesh {mesh.shape} does not divide embed "
                          f"{embed} and batch {frames.shape[0]}")
-    cols = embed // M
-    conv = {k: params[k].detach().to(home).requires_grad_(True)
-            for k in ("conv1", "conv2")}
-    proj = [params["proj"][:, j * cols:(j + 1) * cols].detach()
-            .to(mesh.devices[0, j]).requires_grad_(True) for j in range(M)]
-    cls = [params["cls"][j * cols:(j + 1) * cols].detach()
-           .to(mesh.devices[0, j]).requires_grad_(True) for j in range(M)]
+    placed = _place(params, mesh)
+    proj, cls = placed["proj"], placed["cls"]
     total = None
     for d, (fd, ld) in enumerate(zip(frames.chunk(D), labels.chunk(D))):
         row = mesh.devices[d]
-        feats = _features({k: v.to(row[0]) for k, v in conv.items()},
-                          fd.to(row[0]))
+        feats = _features({k: placed[k].to(row[0])
+                           for k in ("conv1", "conv2")}, fd.to(row[0]))
         emb = [feats.to(row[j]) @ proj[j].to(row[j]) for j in range(M)]
         sq = sum((e * e).sum(-1, keepdim=True).to(row[0]) for e in emb)
         norm = torch.sqrt(sq) + 1e-6
@@ -141,11 +188,13 @@ def sharded_train_step(params, frames, labels, mesh: Mesh,
         total = part if total is None else total + part
     loss = total / frames.shape[0]
     loss.backward()
-    new = {k: (v - lr * v.grad).detach() for k, v in conv.items()}
-    new["proj"] = torch.cat([(p - lr * p.grad).detach().to(home)
-                             for p in proj], dim=1)
-    new["cls"] = torch.cat([(c - lr * c.grad).detach().to(home)
-                            for c in cls], dim=0)
+    new = {}
+    for k, spec in param_shardings(mesh).items():
+        if "model" in spec:
+            new[k] = torch.cat([(p - lr * p.grad).detach().to(home)
+                                for p in placed[k]], spec.index("model"))
+        else:
+            new[k] = (placed[k] - lr * placed[k].grad).detach()
     return new, float(loss.detach())
 
 
@@ -153,12 +202,29 @@ def run_dryrun(n_devices: int, batch: int = 16, hw: int = 32,
                params: Optional[Dict] = None, device=None) -> float:
     """One sharded training step on tiny shapes over ``make_mesh(
     n_devices)``; returns the loss. ``params``: the weights (default
-    ``init_params(0)``; the JAX package's through ``from_flax``)."""
+    the JAX package's draw, ``default_params``, on the mesh's first
+    device)."""
     mesh = make_mesh(n_devices, device=device)
     frames, labels = _data(batch, hw)
-    _, loss = sharded_train_step(params or init_params(0), frames, labels,
-                                 mesh)
+    if params is None:
+        params = default_params(mesh.devices[0, 0])
+    _, loss = sharded_train_step(params, frames, labels, mesh)
     return loss
+
+
+def pytest_approx_rows(a, b, tol: float = 1e-5):
+    """Row-wise approx equality helper (no pytest dependency here): returns
+    ``a`` when every element matches ``b`` within tol, else ``b`` (so the
+    caller's equality assert fails and prints both)."""
+    if len(a) != len(b):
+        return b
+    for ra, rb in zip(a, b):
+        if len(ra) != len(rb):
+            return b
+        for x, y in zip(ra, rb):
+            if abs(x - y) > tol:
+                return b
+    return a
 
 
 def run_pp_sp_dryrun(n_devices: int, device=None) -> None:
@@ -166,7 +232,7 @@ def run_pp_sp_dryrun(n_devices: int, device=None) -> None:
     (row-sharded conv with halo exchange) and expert-parallel (top-1 MoE,
     experts split per device) on tiny shapes, each checked against its
     unsharded golden."""
-    from .expert import init_moe_params, moe_apply, moe_reference
+    from .expert import _from_flax, default_tree, moe_apply, moe_reference
     from .pipeline_parallel import (pipeline_apply, sequential_reference,
                                     stack_stage_params)
     from .spatial import spatial_apply
@@ -218,8 +284,11 @@ def run_pp_sp_dryrun(n_devices: int, device=None) -> None:
     if not torch.equal(got_sp, conv(img)):
         raise AssertionError("sp dryrun: halo-exchange mismatch")
 
-    # ep: n_devices experts, one per device, top-1 routing
-    mp = init_moe_params(3, n_devices, 8, 16)
+    # ep: n_devices experts, one per device, top-1 routing; the JAX
+    # package's init_moe_params(PRNGKey(3), n_devices, 8, 16), drawn where
+    # the rows and the golden are, on the CPU
+    mp = _from_flax(default_tree(jax_random.prng_key(3, "cpu"),
+                                 (n_devices, 8, 16)))
     xt = t(rng.normal(size=(4 * n_devices, 8)))
     got_ep = moe_apply(mp, xt, Mesh(devs, ("expert",)))
     if not torch.allclose(got_ep, moe_reference(mp, xt), atol=1e-5):

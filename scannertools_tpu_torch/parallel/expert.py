@@ -37,6 +37,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..models import jax_random
+from ..models.weights import as_f32
+
 _KEYS = ("router", "w1", "w2")
 
 
@@ -54,8 +57,9 @@ def _he_normal(shape: Tuple[int, ...], gen: torch.Generator) -> torch.Tensor:
 def init_moe_params(seed: int, n_experts: int, d_model: int,
                     d_hidden: int) -> Dict[str, torch.Tensor]:
     """Router + E two-layer FFN experts, stacked on a leading expert axis,
-    He-normal from a ``torch.Generator`` seeded with ``seed`` (not the JAX
-    package's values)."""
+    He-normal from a ``torch.Generator`` seeded with ``seed``: the port's
+    own seeded set. The default weights of ``MoEHead`` are the JAX
+    package's draw (``default_tree``)."""
     gen = torch.Generator().manual_seed(seed)
     return {"router": _he_normal((d_model, n_experts), gen),
             "w1": _he_normal((n_experts, d_model, d_hidden), gen),
@@ -147,11 +151,23 @@ def moe_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     return out
 
 
+def default_tree(key: torch.Tensor, dims) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``init_moe_params(key, E, F, H)``, drawn in torch
+    on the key's device: the router and both expert stacks He-normal on
+    the three keys of ``split(key, 3)``, with JAX's fans (the expert axis
+    is receptive field)."""
+    e, f, h = dims
+    k_r, k1, k2 = jax_random.split(key, 3)
+    return {"router": jax_random.he_normal(k_r, (f, e)),
+            "w1": jax_random.he_normal(k1, (e, f, h)),
+            "w2": jax_random.he_normal(k2, (e, h, f))}
+
+
 def _from_flax(tree, dims=None) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``init_moe_params`` tree (numpy or npz-loaded) ->
-    the same tree of tensors; ``dims`` (E, F, H), where given, must match
-    its shapes."""
-    out = {k: torch.from_numpy(np.array(tree[k], np.float32)) for k in _KEYS}
+    """The JAX package's ``init_moe_params`` tree (numpy, npz-loaded or
+    tensors) -> the same tree of tensors, tensors on their device;
+    ``dims`` (E, F, H), where given, must match its shapes."""
+    out = {k: as_f32(tree[k]) for k in _KEYS}
     if dims is not None:
         e, f, h = dims
         want = {"router": (f, e), "w1": (e, f, h), "w2": (e, h, f)}
@@ -166,6 +182,7 @@ def _from_flax(tree, dims=None) -> Dict[str, torch.Tensor]:
 # F, H)
 MOE = types.SimpleNamespace(
     init_params=lambda seed, dims: init_moe_params(seed, *dims),
+    default_tree=default_tree,
     from_flax=_from_flax,
     to_flax=lambda params: {k: params[k].detach().cpu().numpy()
                             for k in _KEYS})

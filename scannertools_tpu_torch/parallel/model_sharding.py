@@ -188,6 +188,7 @@ def tp_model(name: str, mesh: Optional[Mesh] = None,
             grid[0, i] = d
         mesh = Mesh(grid, ("data", "model"))
     model, apply_fn = get_model(name)
-    sharded = shard_params(_get_params(model, weights_path), mesh,
-                           min_size=min_size)
+    sharded = shard_params(
+        _get_params(model, weights_path, device=mesh.devices.flat[0]), mesh,
+        min_size=min_size)
     return sharded, tp_apply(apply_fn, sharded, mesh)

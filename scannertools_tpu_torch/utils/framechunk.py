@@ -204,6 +204,10 @@ class FrameChunk:
         return self.flat.shape[0]
 
 
+def is_frame_chunk(x) -> bool:
+    return isinstance(x, FrameChunk)
+
+
 def as_hwc_f32(frames) -> torch.Tensor:
     """Device ops' helper: a FrameChunk or a plain NHWC array -> a float32
     [T, H, W, C] tensor (on the chunk's device; i420 converted in the

@@ -463,13 +463,18 @@ def test_weights_round_trip(request, which):
 
 def test_init_params_shapes_and_ops_cache():
     """The port's own seeded weights load into its module strictly, and the
-    op's weight cache keys Mask R-CNN's weights on the arch."""
+    op's weight cache keys Mask R-CNN's weights on the arch (and, for the
+    default draw, on the device it was drawn on). The default weights are
+    the JAX package's draw (``weights.default_params``), and they too load
+    strictly."""
     state = PM.init_params(0)
     PM.MaskRCNN().load_state_dict(state)
     a = PFO._get_params("maskrcnn", None, "R-50-FPN")
     assert a is PFO._get_params("maskrcnn", None, "R-50-FPN")
-    assert ("maskrcnn", None, "R-50-FPN") in PFO._MODEL_CACHE
-    assert all(torch.equal(a[k], state[k]) for k in state)
+    assert ("maskrcnn", None, "R-50-FPN", "cpu") in PFO._MODEL_CACHE
+    PM.MaskRCNN().load_state_dict(a)
+    want = PW.default_params(PM, "R-50-FPN", device="cpu")
+    assert all(torch.equal(a[k], want[k]) for k in want)
 
 
 # ------------------------------------------------------------ pipeline
