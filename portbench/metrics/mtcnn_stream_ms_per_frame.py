@@ -1,0 +1,15 @@
+"""The program's ``stream:MTCNNForward`` intervals inside the window, per
+stored frame: the time the card's stream spent on MTCNN's cascade (P-,
+R- and O-Net with their nms and crops), from the moment it reached the
+op's first work to the moment it finished its last (so with any
+starvation inside the op)."""
+
+from portbench.metrics import _program
+
+_program.install()
+
+UNIT = "ms"
+
+
+def read(run):
+    return _program.ms_per_frame(run, ["stream:MTCNNForward"])

@@ -353,12 +353,17 @@ def face_embed_forward(ctx, aux, frame, nboxes, valid,
     The budget spans the chunk, so the data mesh does not split the op by
     frames (``inner_split``): it compacts on the client's device, as the
     JAX package's GSPMD run computes it, and splits the [B, 160, 160, 3]
-    crop batch over the mesh (``_net_rows``)."""
+    crop batch over the mesh (``_net_rows``).
+
+    Counts the crops the net runs as ``embed:crops`` (B, known from the
+    shapes; ``EmbedDecode`` counts the faces kept)."""
     x = as_hwc_f32(frame)
     t = x.shape[0]
     k = nboxes.shape[1]
     crops, sel, sel_ok, want = _compact_crops(x, nboxes, valid, 160,
                                               faces_budget)
+    if ctx is not None:
+        ctx.count("embed:crops", crops.shape[0])
     embs = _net_rows(facenet_lib.embed, aux, crops)  # [B, 128]
     return (_scatter_rows(embs, sel, sel_ok, t, k), valid,
             _overflow_rows(sel, sel_ok, want, t, k))
@@ -366,6 +371,9 @@ def face_embed_forward(ctx, aux, frame, nboxes, valid,
 
 @register_op("EmbedDecode", kind="host", outputs=("facenet_embeddings",))
 def embed_decode(ctx, embs, valid, overflow=None):
+    """Padded embeddings -> a [faces, 128] array a frame. Counts the faces
+    kept as ``embed:faces`` (FaceNet's useful crops, against
+    ``embed:crops``)."""
     n_over = int(np.sum(overflow)) if overflow is not None else 0
     if n_over:
         import warnings
@@ -379,6 +387,8 @@ def embed_decode(ctx, embs, valid, overflow=None):
         rows = [e for e, v in zip(E, V) if v]
         out.append(np.stack(rows).astype(np.float32) if rows
                    else np.zeros((0, 128), np.float32))
+    if ctx is not None:
+        ctx.count("embed:faces", sum(len(r) for r in out))
     return out
 
 

@@ -23,6 +23,7 @@ no padding of the batch to a multiple of 4 (a shape cache of jit's).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional
 
@@ -211,16 +212,19 @@ def crop_batch(frames: torch.Tensor, items: torch.Tensor,
 
 
 def _run_crop_net(tag: str, weights_path, n_kp: int, frames: torch.Tensor,
-                  items: List, size: int, pipe_mesh=None) -> np.ndarray:
+                  items: List, size: int, pipe_mesh=None,
+                  ctx=None) -> np.ndarray:
     """The crops of ``items`` cut from the chunk's frames on their device,
     and the crop net ``tag`` over them in one call -> [len(items), n_kp,
     3] crop-normalized keypoints (numpy). ``pipe_mesh`` runs the net's
-    refinement stages one per device (models/pose.crop_forward_pipelined)."""
+    refinement stages one per device (models/pose.crop_forward_pipelined);
+    the copy back is ``ctx``'s ``host:wait_device``."""
     state = _device_state(tag, weights_path, frames.device)
     it = torch.as_tensor(np.asarray(items, np.float32), device=frames.device)
     crops = crop_batch(frames, it, size)
-    return pose_lib.crop_keypoints(state, crops, n_kp,
-                                   pipe_mesh=pipe_mesh).cpu().numpy()
+    kps = pose_lib.crop_keypoints(state, crops, n_kp, pipe_mesh=pipe_mesh)
+    with _waiting(ctx):
+        return kps.cpu().numpy()
 
 
 def _write_back(kp_full: np.ndarray, slot: int, n_kp: int, box,
@@ -234,6 +238,13 @@ def _write_back(kp_full: np.ndarray, slot: int, n_kp: int, box,
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _waiting(ctx):
+    """The span of a host op's copies from the device (``OpContext.
+    wait_device``, nested in the op's own span); nothing without a
+    context."""
+    return contextlib.nullcontext() if ctx is None else ctx.wait_device()
 
 
 def _on_device(ctx, x) -> torch.Tensor:
@@ -311,9 +322,12 @@ def openpose_decode(ctx, peaks, valid, scores, dims, frame=None,
     crops are cut on the device from the chunk's frames (``frame`` comes in
     as the device's value: ``device_inputs``), one crop-net call per net
     and chunk. ``crop_net_size`` is the crop resolution (the wrapper's
-    368×368); ``batch`` is accepted for API parity."""
-    peaks, valid, scores, dims = (_host(a) for a in (peaks, valid, scores,
-                                                     dims))
+    368×368); ``batch`` is accepted for API parity. The copies of the
+    device's values to the host are ``host:wait_device`` spans, so the
+    op's own time less theirs is the grouping's."""
+    with _waiting(ctx):
+        peaks, valid, scores, dims = (_host(a) for a in (peaks, valid,
+                                                         scores, dims))
     t = peaks.shape[0]
 
     out: List[List[Pose]] = []
@@ -363,14 +377,14 @@ def openpose_decode(ctx, peaks, valid, scores, dims, frame=None,
             kps = _run_crop_net(
                 "openpose_face", face_weights_path, FK, frames,
                 [(i, *box) for _, box, i in face_items], crop_net_size,
-                pipe_mesh)
+                pipe_mesh, ctx)
             for (p, box, _), ckp in zip(face_items, kps):
                 _write_back(p._kp, face_slot, FK, box, ckp)
         if hand_items:
             kps = _run_crop_net(
                 "openpose_hand", hand_weights_path, HK, frames,
                 [(i, *box[:4]) for _, _, box, i in hand_items],
-                crop_net_size, pipe_mesh)
+                crop_net_size, pipe_mesh, ctx)
             for (p, slot, box, _), ckp in zip(hand_items, kps):
                 _write_back(p._kp, slot, HK, box, ckp)
     return out
@@ -446,7 +460,8 @@ def cpm2_output(ctx, cpm2_resized_map, cpm2_joints, original_frame_info,
     paf = _on_device(ctx, cpm2_joints).permute(0, 3, 1, 2).contiguous()
     peaks, valid = pose_lib.find_peaks(heat)
     scores = pose_lib.limb_scores(paf, peaks, valid)
-    peaks, valid, scores = _host(peaks), _host(valid), _host(scores)
+    with _waiting(ctx):
+        peaks, valid, scores = _host(peaks), _host(valid), _host(scores)
     out = []
     for t in range(peaks.shape[0]):
         people = pose_lib.group_people(peaks[t], valid[t], scores[t])

@@ -13,10 +13,15 @@ and ``expert_shards``) and builds the ops' meshes over them
 None, under the JAX package's conditions). Each call on a reserved axis is
 counted in the profiler: ``axis:<name>:engaged`` when it gives a mesh,
 ``axis:<name>:not_engaged`` when the op must fall back unsharded.
+
+``packet`` names the work packet the executor is running (``job``, its
+first ``row`` and its ``rows``); the ops' own spans and counters carry it,
+as the executor's do, so that the spans of one packet share an identifier.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 from .. import protobufs
@@ -56,6 +61,22 @@ class OpContext:
         #: ops/nn_generic.py MoEHead)
         self.ep_devices = list(ep_devices) if ep_devices else None
         self._kernel_cache: Dict[Tuple, Any] = {}
+        #: the packet being run (set by the executor at each chunk)
+        self.packet: Dict[str, int] = {"job": job}
+
+    def wait_device(self):
+        """A ``host:wait_device`` span, with the packet's meta, around a
+        copy from the device that blocks the calling thread; nothing
+        without a profiler."""
+        if self.profiler is None:
+            return contextlib.nullcontext()
+        return self.profiler.span("host:wait_device", **self.packet)
+
+    def count(self, name: str, n: int) -> None:
+        """Count ``n`` of ``name`` for the packet (the event's ``n``
+        meta); nothing without a profiler."""
+        if self.profiler is not None:
+            self.profiler.count(name, n=n, **self.packet)
 
     def _count(self, axis: str, mesh):
         if self.profiler is not None:

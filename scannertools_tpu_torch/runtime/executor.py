@@ -741,6 +741,11 @@ class Executor:
             sp_devices=reserved.get("sp"),
             ep_devices=reserved.get("expert"),
         )
+        # the device clocks against perf_counter, for the stream spans: the
+        # card is idle between jobs, so the wait is short
+        for d in ([self.device] if self._mesh is None
+                  else [self.device] + self._mesh.device_list()):
+            self.profiler.calibrate(d)
 
         # rows are zipped across inputs (reference N-input jobs): every
         # source must sample down to the same element count
@@ -900,6 +905,7 @@ class Executor:
             def decode_chunk(a: int):
                 b = min(a + W, n_out) - 1
                 T = b - a + 1
+                packet = {"job": job, "row": a, "rows": T}
                 vals: Dict[Tuple[int, int], _Value] = {}
                 for si, (src, ins) in enumerate(zip(sources, in_streams)):
                     s_lo, s_hi = need[src.id]
@@ -915,7 +921,8 @@ class Executor:
                     if decoder is not None and ring is not None:
                         # slot waits (consumer busy) are not decode
                         # time — keep out of source:read
-                        with self.profiler.span("source:wait_slot"):
+                        with self.profiler.span("source:wait_slot",
+                                                **packet):
                             slot = ring.acquire()
                         h, w = meta["height"], meta["width"]
                         if yuv:
@@ -928,7 +935,7 @@ class Executor:
                             out_buf = slot[: len(src_rows) * fb].reshape(
                                 len(src_rows), h, w, 3
                             )
-                    with self.profiler.span("source:read"):
+                    with self.profiler.span("source:read", **packet):
                         if decoder is not None:
                             if yuv:
                                 planes = decoder.read_frames_i420(
@@ -949,7 +956,8 @@ class Executor:
                                 data = FrameChunk.from_hwc(frames)
                             ready = None
                             if uploads[si]:
-                                with self.profiler.span("source:upload"):
+                                with self.profiler.span("source:upload",
+                                                        **packet):
                                     data, ready = uploader.upload(data)
                             vals[(src.id, 0)] = _Value(
                                 data, s_lo, s_hi, is_device=uploads[si],
@@ -971,6 +979,7 @@ class Executor:
 
             for a, T, src_vals in prefetched:
                 last_chunk[:] = (a, T)
+                ctx.packet = {"job": job, "row": a, "rows": T}
                 for v in src_vals.values():
                     uploader.adopt(v)
                 values: Dict[Tuple[int, int], _Value] = dict(src_vals)
@@ -982,7 +991,7 @@ class Executor:
                     if deferred:
                         continue
                     val = values[(edge.node.id, edge.index)]
-                    self._write_column(writer, edge, val, T,
+                    self._write_column(writer, edge, val, T, ctx.packet,
                                        shard_start=a if shard_mode else None,
                                        sink_worker=sink_worker)
                 for ring in rings:
@@ -991,6 +1000,7 @@ class Executor:
                     # they keep: the staging slot can be recycled
                     if ring is not None:
                         ring.release()
+                self.profiler.poll()
                 if heartbeat is not None:
                     heartbeat()
                 if show_progress:
@@ -1006,7 +1016,8 @@ class Executor:
                 args = [
                     _concat_host(parts) for parts in ws_acc[node.id]
                 ]
-                with self.profiler.span(f"op:{node.name}"):
+                with self.profiler.span(f"op:{node.name}", job=job, row=0,
+                                        rows=n_out):
                     res = opdef.fn(ctx, *args, **node.params)
                 if opdef.n_outputs == 1:
                     ws_out[(node.id, 0)] = list(res)
@@ -1151,12 +1162,12 @@ class Executor:
                     local[(e.node.id, e.index)] = v
                 args.append(v.slice_rows(n_lo + s_lo, n_hi + s_hi, T))
             label = "device:" + node.name + ("@cpu" if on_cpu else "")
-            with self.profiler.span(label):
+            with self.profiler.span(label, **ctx.packet):
                 if opdef.aux is not None:
-                    res = opdef.fn(ctx, self._resolve_aux(opdef, node, ctx,
-                                                          device),
-                                   *args, **node.params)
-                else:
+                    args.insert(0, self._resolve_aux(opdef, node, ctx,
+                                                     device))
+                with self.profiler.stream_span("stream:" + node.name,
+                                               device, **ctx.packet):
                     res = opdef.fn(ctx, *args, **node.params)
             if opdef.n_outputs == 1:
                 res = (res,)
@@ -1231,7 +1242,10 @@ class Executor:
     def _resolve_aux(self, opdef, node, ctx, device: torch.device):
         key = (opdef.name, _ser_params(node.params), str(device))
         if key not in self._aux:
-            self._aux[key] = _tree_to(opdef.aux(ctx, node.params), device)
+            # first use: the weights read (or drawn) and moved to the device
+            with self.profiler.span(f"load:{opdef.name}", device=str(device)):
+                self._aux[key] = _tree_to(opdef.aux(ctx, node.params),
+                                          device)
         return self._aux[key]
 
     def _run_host_node(self, node, need, values, ctx, T, state, ws_acc,
@@ -1255,7 +1269,7 @@ class Executor:
             data = v.slice_rows(n_lo + s_lo, n_hi + s_hi, T)
             if (v.is_device or isinstance(data, FrameChunk)) \
                     and not opdef.device_inputs:
-                data = _to_host(data)
+                data = self._copy_out(data, v.is_device, ctx.packet)
             args.append(data)
 
         if node.id in ws_ids:
@@ -1267,7 +1281,7 @@ class Executor:
                 ws_acc[node.id][slot].append(a)
             return
 
-        with self.profiler.span(f"op:{node.name}"):
+        with self.profiler.span(f"op:{node.name}", **ctx.packet):
             if opdef.kind == "stateful":
                 st = state.get(node.id)
                 if st is None and opdef.init_state is not None:
@@ -1280,6 +1294,15 @@ class Executor:
             res = (res,)
         for k, r in enumerate(res):
             values[(node.id, k)] = _Value(r, n_lo, n_hi, False)
+
+    def _copy_out(self, data, on_device: bool, packet: dict):
+        """``_to_host(data)``; from the device, where the executor's thread
+        waits for the card, a ``host:wait_device`` span with ``packet``'s
+        meta."""
+        if not on_device:
+            return _to_host(data)
+        with self.profiler.span("host:wait_device", **packet):
+            return _to_host(data)
 
     # ------------------------------------------------------------- sinks
 
@@ -1295,12 +1318,14 @@ class Executor:
             return s.type_name()
         raise ValueError(f"cannot sink from {node}")
 
-    def _write_column(self, writer, edge, val: _Value, T: int,
+    def _write_column(self, writer, edge, val: _Value, T: int, packet: dict,
                       shard_start=None, sink_worker=None):
+        """Store a chunk's rows of a column; ``packet`` is the spans' meta
+        (``OpContext.packet``)."""
         data = val.slice_rows(0, 0, T)
         was_host = not val.is_device
         if val.is_device or isinstance(data, FrameChunk):
-            data = _to_host(data)
+            data = self._copy_out(data, val.is_device, packet)
         if was_host and isinstance(data, np.ndarray):
             # host-path frame arrays (incl. host FrameChunks) can be views
             # of recycled decode-ring slots; the async writer outlives the
@@ -1314,7 +1339,7 @@ class Executor:
         ser = typeslib.get_type(self._column_type(edge)).serialize
 
         def emit():
-            with self.profiler.span("sink:write"):
+            with self.profiler.span("sink:write", **packet):
                 if isinstance(data, list):
                     elements = [b"" if el is None else
                                 el if isinstance(el, bytes) else ser(el)
