@@ -298,8 +298,10 @@ def openpose_forward(ctx, aux, frame, weights_path: Optional[str] = None,
     peaks, valid, scores = pose_lib.device_stage(aux, x, scales,
                                                  upsample=pose_upsample,
                                                  pipe_mesh=pipe_mesh)
-    dims = torch.tensor([[h, w]], dtype=torch.int32,
-                        device=x.device).repeat(t, 1)
+    # filled on the device: a copy from the host would wait for the stream
+    dims = torch.empty((t, 2), dtype=torch.int32, device=x.device)
+    dims[:, 0].fill_(h)
+    dims[:, 1].fill_(w)
     return peaks, valid, scores, dims
 
 

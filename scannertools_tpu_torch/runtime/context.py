@@ -22,7 +22,7 @@ as the executor's do, so that the spans of one packet share an identifier.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from .. import protobufs
 from ..parallel.mesh import Mesh
@@ -63,14 +63,22 @@ class OpContext:
         self._kernel_cache: Dict[Tuple, Any] = {}
         #: the packet being run (set by the executor at each chunk)
         self.packet: Dict[str, int] = {"job": job}
+        #: called at the start of each wait on the device: while the
+        #: executor runs a packet's deferred host tail, it waits there for
+        #: that packet's device work (None: nothing to wait for first)
+        self.settle: Optional[Callable[[], None]] = None
 
+    @contextlib.contextmanager
     def wait_device(self):
         """A ``host:wait_device`` span, with the packet's meta, around a
-        copy from the device that blocks the calling thread; nothing
-        without a profiler."""
-        if self.profiler is None:
-            return contextlib.nullcontext()
-        return self.profiler.span("host:wait_device", **self.packet)
+        copy from the device that blocks the calling thread (``settle``
+        runs first, inside it); no span without a profiler."""
+        span = contextlib.nullcontext() if self.profiler is None \
+            else self.profiler.span("host:wait_device", **self.packet)
+        with span:
+            if self.settle is not None:
+                self.settle()
+            yield
 
     def count(self, name: str, n: int) -> None:
         """Count ``n`` of ``name`` for the packet (the event's ``n``

@@ -21,6 +21,14 @@ gRPC scheduling + C++ kernel threads, SURVEY §1 L0). The design:
     (``prefetch_depth``). On CUDA the same thread uploads each chunk from
     the staging ring on a side stream; the compute stream waits on the
     copy's event (see ``_Uploader``).
+  * A one-packet pipeline: a chunk's host tail (the ops after its last
+    device op, and its sink writes) runs after the next chunk's device
+    part is enqueued, so the host's work on chunk n overlaps the card's
+    on chunk n+1. Tails run in chunk order; on CUDA a tail computes and
+    copies on a stream of its own once its chunk's device work is done
+    (see ``_Tail``). The profiler counts ``pipeline:deferred_tail`` a
+    deferred chunk and ``pipeline:not_engaged`` a job whose graph has no
+    host tail.
   * Multi-device (the JAX package's axes, where GSPMD partitions a jitted
     segment; here the executor splits it): with
     ``pipeline_instances_per_node != 1`` and more than one local device a
@@ -41,6 +49,7 @@ gRPC scheduling + C++ kernel threads, SURVEY §1 L0). The design:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -224,6 +233,91 @@ class _Uploader:
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(val.ready)
         val.data.flat.record_stream(stream)
+
+
+def _tail_start(order: List[Node]) -> Tuple[int, Optional[str]]:
+    """Where a chunk's host tail starts in ``order``: (the index after the
+    last device op, None) when an op follows it; else (len(order), why
+    the chunk runs whole)."""
+    last = max((i for i, n in enumerate(order) if isinstance(n, OpNode)
+                and get_op(n.name).kind == "device"), default=None)
+    if last is None:
+        return len(order), "no device op"
+    if not any(isinstance(n, OpNode) for n in order[last + 1:]):
+        return len(order), "no host tail"
+    return last + 1, None
+
+
+def _tensors(data):
+    """The tensors of a value (a tensor, FrameChunk or nest of them)."""
+    if isinstance(data, FrameChunk):
+        data = data.flat
+    if isinstance(data, torch.Tensor):
+        yield data
+    elif isinstance(data, (list, tuple)):
+        for d in data:
+            yield from _tensors(d)
+    elif isinstance(data, dict):
+        for d in data.values():
+            yield from _tensors(d)
+
+
+class _Tail:
+    """A chunk's host tail, kept between its device part and its run:
+    the chunk's rows, its packet meta and the values the tail reads.
+
+    Deferred on CUDA (``defer``), it runs on a stream of its own: an event
+    ends the chunk's device work on the compute stream, the tail's stream
+    waits on it, and the tail's first wait on the device
+    (``OpContext.settle``, inside its ``host:wait_device`` span) waits for
+    it on the host, so each copy finds its data ready and none queues
+    behind the next chunk's work on the compute stream."""
+
+    __slots__ = ("row", "rows", "packet", "values", "ready", "stream")
+
+    def __init__(self, row: int, rows: int, packet: dict,
+                 values: Dict[Tuple[int, int], _Value]):
+        self.row, self.rows, self.packet = row, rows, packet
+        self.values = values
+        self.ready = None
+        self.stream = None
+
+    def defer(self, stream) -> None:
+        """Mark the end of the chunk's device work for ``stream`` (the
+        tail's CUDA stream; None off CUDA: nothing to mark)."""
+        if stream is None:
+            return
+        self.ready = torch.cuda.Event(blocking=True)
+        self.ready.record(torch.cuda.current_stream(stream.device))
+        self.stream = stream
+
+    @contextlib.contextmanager
+    def running(self, ctx: OpContext):
+        """The tail's run: ``ctx`` names its packet, and a deferred tail
+        computes and copies on its own stream after the chunk's device
+        work."""
+        ctx.packet = self.packet
+        if self.stream is None:
+            yield
+            return
+        stream, ready = self.stream, self.ready
+        stream.wait_event(ready)
+        for v in self.values.values():
+            if v.is_device:
+                for t in _tensors(v.data):
+                    if t.device == stream.device:
+                        t.record_stream(stream)
+
+        def settle():
+            ready.synchronize()  # the chunk's device work
+            stream.synchronize()  # what the tail itself launched
+
+        ctx.settle = settle
+        try:
+            with torch.cuda.stream(stream):
+                yield
+        finally:
+            ctx.settle = None
 
 
 class Executor:
@@ -838,6 +932,22 @@ class Executor:
         prefetched = None
         sink_worker = None
         last_chunk = [-1, 0]
+        # A chunk runs in two parts: its device part, every node up to and
+        # including the last device op, and its host tail, the nodes after
+        # it with the sink writes. When the tail holds an op, chunk n's
+        # tail runs after chunk n+1's device part is enqueued, so the host
+        # works while the card does (a one-packet pipeline); tails run in
+        # chunk order.
+        split, not_engaged = _tail_start(order)
+        device_part, tail_nodes = order[:split], order[split:]
+        tail_reads = {(e.node.id, e.index) for n in tail_nodes + [output]
+                      for e in n.inputs.values()}
+        if not_engaged is not None:
+            self.profiler.count("pipeline:not_engaged", job=job,
+                                reason=not_engaged)
+        tail_stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" and tail_nodes else None)
+        pending: Optional[_Tail] = None
         try:
             for si, (src, ins) in enumerate(zip(sources, in_streams)):
                 decoder = (warm or {}).pop((job, si), None)
@@ -895,8 +1005,11 @@ class Executor:
                     frame_bytes = meta["height"] * meta["width"] * 3
                     if yuv:
                         frame_bytes = meta["height"] * meta["width"] * 3 // 2
+                    # a deferred tail holds its chunk's host frames while
+                    # the next chunk runs: one slot more
                     ring = ChunkRing((W + (s_hi - s_lo)) * frame_bytes,
-                                     depth + 2)
+                                     depth + 2 + (bool(tail_nodes)
+                                                  and not upload))
                 rings.append(ring)
                 uploads.append(upload)
                 yuvs.append(yuv)
@@ -977,34 +1090,69 @@ class Executor:
             # workers)
             sink_worker = _SinkWorker(depth=2 * max(1, len(writers)))
 
+            def finish(tail: _Tail) -> None:
+                """Chunk ``tail.row``'s host tail, then its sink writes,
+                the release of its ring slots not yet released, and the
+                chunk's poll, heartbeat and progress."""
+                last_chunk[:] = (tail.row, tail.rows)
+                with tail.running(ctx):
+                    self._run_chunk(tail_nodes, need, tail.values, ctx,
+                                    tail.rows, state, ws_acc, ws_ids)
+                    # write non-deferred sink columns (async; the _to_host
+                    # copy inside stays synchronous)
+                    for edge, writer, deferred in writers:
+                        if deferred:
+                            continue
+                        val = tail.values[(edge.node.id, edge.index)]
+                        self._write_column(
+                            writer, edge, val, tail.rows, ctx,
+                            shard_start=tail.row if shard_mode else None,
+                            sink_worker=sink_worker)
+                for ring, upload in zip(rings, uploads):
+                    # host consumers copied what they keep: the staging
+                    # slot can be recycled
+                    if ring is not None and not upload:
+                        ring.release()
+                self.profiler.poll()
+                if heartbeat is not None:
+                    heartbeat()
+                if show_progress:
+                    print(f"  job {job}: rows {tail.row + tail.rows}/{n_out}",
+                          flush=True)
+
+            def finish_pending() -> None:
+                nonlocal pending
+                tail, pending = pending, None
+                if tail is not None:
+                    finish(tail)
+
             for a, T, src_vals in prefetched:
                 last_chunk[:] = (a, T)
                 ctx.packet = {"job": job, "row": a, "rows": T}
                 for v in src_vals.values():
                     uploader.adopt(v)
                 values: Dict[Tuple[int, int], _Value] = dict(src_vals)
-                self._run_chunk(order, need, values, ctx, T, state,
+                del src_vals
+                self._run_chunk(device_part, need, values, ctx, T, state,
                                 ws_acc, ws_ids)
-                # write non-deferred sink columns (async; the _to_host copy
-                # inside stays synchronous)
-                for edge, writer, deferred in writers:
-                    if deferred:
-                        continue
-                    val = values[(edge.node.id, edge.index)]
-                    self._write_column(writer, edge, val, T, ctx.packet,
-                                       shard_start=a if shard_mode else None,
-                                       sink_worker=sink_worker)
-                for ring in rings:
+                for ring, upload in zip(rings, uploads):
                     # the upload of this chunk completed before the prefetch
-                    # thread handed it over, and host consumers copied what
-                    # they keep: the staging slot can be recycled
-                    if ring is not None:
+                    # thread handed it over: nothing reads the slot now
+                    if ring is not None and upload:
                         ring.release()
-                self.profiler.poll()
-                if heartbeat is not None:
-                    heartbeat()
-                if show_progress:
-                    print(f"  job {job}: rows {a + T}/{n_out}", flush=True)
+                tail = _Tail(a, T, ctx.packet, {
+                    k: v for k, v in values.items() if k in tail_reads})
+                del values
+                if not tail_nodes:
+                    finish(tail)
+                    continue
+                tail.defer(tail_stream)
+                if pending is not None:
+                    self.profiler.count("pipeline:deferred_tail",
+                                        **pending.packet)
+                finish_pending()
+                pending = tail
+            finish_pending()
 
             # all async writes must land before deferred writes / commit
             sink_worker.flush()
@@ -1043,6 +1191,14 @@ class Executor:
                 f"{last_chunk[0]}..{last_chunk[0] + last_chunk[1] - 1} "
                 f"of {n_out}"
             )
+            if pending is not None:
+                # the chunk before the one that failed is stored as it
+                # would have been without the deferral
+                try:
+                    finish_pending()
+                except Exception as tail_error:
+                    e.add_note(f"its previous chunk's host tail failed "
+                               f"too: {tail_error!r}")
             if sink_worker is not None:
                 sink_worker.close()  # no write may race the aborts below
             for _, writer, _ in writers:
@@ -1269,7 +1425,7 @@ class Executor:
             data = v.slice_rows(n_lo + s_lo, n_hi + s_hi, T)
             if (v.is_device or isinstance(data, FrameChunk)) \
                     and not opdef.device_inputs:
-                data = self._copy_out(data, v.is_device, ctx.packet)
+                data = self._copy_out(data, v.is_device, ctx)
             args.append(data)
 
         if node.id in ws_ids:
@@ -1295,13 +1451,14 @@ class Executor:
         for k, r in enumerate(res):
             values[(node.id, k)] = _Value(r, n_lo, n_hi, False)
 
-    def _copy_out(self, data, on_device: bool, packet: dict):
+    @staticmethod
+    def _copy_out(data, on_device: bool, ctx: OpContext):
         """``_to_host(data)``; from the device, where the executor's thread
-        waits for the card, a ``host:wait_device`` span with ``packet``'s
-        meta."""
+        waits for the card, inside ``ctx.wait_device()`` (a
+        ``host:wait_device`` span with the packet's meta)."""
         if not on_device:
             return _to_host(data)
-        with self.profiler.span("host:wait_device", **packet):
+        with ctx.wait_device():
             return _to_host(data)
 
     # ------------------------------------------------------------- sinks
@@ -1318,14 +1475,15 @@ class Executor:
             return s.type_name()
         raise ValueError(f"cannot sink from {node}")
 
-    def _write_column(self, writer, edge, val: _Value, T: int, packet: dict,
-                      shard_start=None, sink_worker=None):
-        """Store a chunk's rows of a column; ``packet`` is the spans' meta
-        (``OpContext.packet``)."""
+    def _write_column(self, writer, edge, val: _Value, T: int,
+                      ctx: OpContext, shard_start=None, sink_worker=None):
+        """Store a chunk's rows of a column; ``ctx.packet`` is the spans'
+        meta."""
+        packet = ctx.packet
         data = val.slice_rows(0, 0, T)
         was_host = not val.is_device
         if val.is_device or isinstance(data, FrameChunk):
-            data = self._copy_out(data, val.is_device, packet)
+            data = self._copy_out(data, val.is_device, ctx)
         if was_host and isinstance(data, np.ndarray):
             # host-path frame arrays (incl. host FrameChunks) can be views
             # of recycled decode-ring slots; the async writer outlives the
