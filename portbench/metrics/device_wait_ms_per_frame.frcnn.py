@@ -1,0 +1,3 @@
+"""``device_wait_ms_per_frame`` in the Faster R-CNN cell."""
+
+from portbench.metrics.device_wait_ms_per_frame import UNIT, read  # noqa: F401

@@ -18,7 +18,9 @@ padded with invalid ones, and padded rows emit cls_prob = one-hot
 background (the decode can never select them). The whole chunk is batched:
 one ``nms`` launch for all frames' proposals, one ``crop_and_resize``
 launch for all frames' RoIs (a frame index per box) at 7x7 on the conv5_3
-map, C = 512. Where the anchors are fewer than ``num_rois`` the JAX
+map, C = 512. The anchors are made once per map size and device
+(``device_anchors``), so the forward copies nothing to the card and waits
+for nothing. Where the anchors are fewer than ``num_rois`` the JAX
 package's ``nms`` returns num_rois + 1 rows (its discard slot, one-hot
 background after the forward); this returns num_rois.
 
@@ -33,6 +35,8 @@ raw rois (faster_rcnn_output_kernel_cpu.cpp:44-47).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -82,6 +86,18 @@ def anchors_for(h: int, w: int) -> np.ndarray:
     shift = np.stack(np.meshgrid(sx, sy), axis=-1).reshape(-1, 2)  # [h*w,2]
     shift = np.concatenate([shift, shift], axis=1)  # x1 y1 x2 y2
     return (shift[:, None, :] + base_anchors[None, :, :]).reshape(-1, 4)
+
+
+@functools.lru_cache(maxsize=64)
+def device_anchors(h: int, w: int, device: torch.device) -> torch.Tensor:
+    """``anchors_for(h, w)`` as float32 on ``device``, made once per map
+    size and device: the copy to a card synchronises its stream, so the
+    forward reads this tensor and copies nothing."""
+    return torch.from_numpy(anchors_for(h, w).astype(np.float32)).to(device)
+
+
+def _no_stage(name: str):
+    return contextlib.nullcontext()
 
 
 def decode_deltas(anchors: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
@@ -160,51 +176,61 @@ class FasterRCNN(nn.Module):
         # in the state for checkpoint totality; the decode ignores it
         self.bbox_pred = nn.Linear(4096, 4 * num_classes)
 
-    def forward(self, x, num_rois: int, pre_nms: int):
+    def forward(self, x, num_rois: int, pre_nms: int, stage=_no_stage):
         """x: [N, H, W, 3] float32 (BGR, caffe mean-subtracted upstream by
         NNInput). Returns (cls_prob [N,R,81], rois [N,R,5], fc7
-        [N,R,4096])."""
+        [N,R,4096]). ``stage(name)`` is a context around each of the three
+        parts ("trunk", "proposals", "roi_head"); nothing in them waits for
+        the device."""
         n, H, W, _ = x.shape
-        feat = self.vgg(x.permute(0, 3, 1, 2))  # [N, 512, H/16, W/16]
-        fh, fw = feat.shape[2], feat.shape[3]
-        rpn = torch.relu(self.rpn_conv(feat))
-        cls_logit = self.rpn_cls_score(rpn).permute(0, 2, 3, 1)
-        bbox_delta = self.rpn_bbox_pred(rpn).permute(0, 2, 3, 1)
-        anchors = torch.from_numpy(anchors_for(fh, fw).astype(np.float32)) \
-            .to(x.device)
-        # a cell's 18 channels are [9 bg, 9 fg] (NHWC): fg score = softmax
-        # over (logit[a], logit[9 + a])
-        cls_logit = cls_logit.reshape(n, fh * fw, 2, 9)
-        fg = torch.softmax(cls_logit, dim=2)[:, :, 1, :].reshape(n, -1)
-        deltas = bbox_delta.reshape(n, fh * fw * 9, 4)
-        boxes, valid = propose_boxes(anchors, fg, deltas, H, W, pre_nms,
-                                     num_rois)  # [N,R,4], [N,R]
+        with stage("trunk"):
+            feat = self.vgg(x.permute(0, 3, 1, 2))  # [N, 512, H/16, W/16]
+            fh, fw = feat.shape[2], feat.shape[3]
+            rpn = torch.relu(self.rpn_conv(feat))
+            cls_logit = self.rpn_cls_score(rpn).permute(0, 2, 3, 1)
+            bbox_delta = self.rpn_bbox_pred(rpn).permute(0, 2, 3, 1)
+        with stage("proposals"):
+            anchors = device_anchors(fh, fw, x.device)
+            # a cell's 18 channels are [9 bg, 9 fg] (NHWC): fg score =
+            # softmax over (logit[a], logit[9 + a])
+            cls_logit = cls_logit.reshape(n, fh * fw, 2, 9)
+            fg = torch.softmax(cls_logit, dim=2)[:, :, 1, :].reshape(n, -1)
+            deltas = bbox_delta.reshape(n, fh * fw * 9, 4)
+            boxes, valid = propose_boxes(anchors, fg, deltas, H, W, pre_nms,
+                                         num_rois)  # [N,R,4], [N,R]
         r = boxes.shape[1]
 
-        # RoIAlign over conv5_3: crop_and_resize takes pixel coords in the
-        # given map, here the stride-16 one, so the input-pixel rois / 16
-        feat_hwc = feat.permute(0, 2, 3, 1).contiguous()
-        frame_idx = torch.arange(n, device=x.device).repeat_interleave(r)
-        pooled = crop_and_resize(feat_hwc, (boxes / STRIDE).reshape(-1, 4),
-                                 (POOL, POOL), frame_idx)  # [N*R,7,7,512]
-        h6 = torch.relu(self.fc6(pooled.reshape(n, r, -1)))  # HWC flatten
-        fc7 = torch.relu(self.fc7(h6))
-        cls_prob = torch.softmax(self.cls_score(fc7), dim=-1)
+        with stage("roi_head"):
+            # RoIAlign over conv5_3: crop_and_resize takes pixel coords in
+            # the given map, here the stride-16 one, so the input-pixel
+            # rois / 16
+            feat_hwc = feat.permute(0, 2, 3, 1).contiguous()
+            frame_idx = torch.arange(n, device=x.device)[:, None] \
+                .expand(n, r).reshape(-1).contiguous()
+            pooled = crop_and_resize(feat_hwc,
+                                     (boxes / STRIDE).reshape(-1, 4),
+                                     (POOL, POOL), frame_idx)  # [N*R,7,7,512]
+            h6 = torch.relu(self.fc6(pooled.reshape(n, r, -1)))  # HWC flat
+            fc7 = torch.relu(self.fc7(h6))
+            cls_prob = torch.softmax(self.cls_score(fc7), dim=-1)
 
-        # padded/suppressed rows -> one-hot background (decode skips them)
-        bg = torch.zeros_like(cls_prob)
-        bg[..., 0] = 1.0
-        v = valid[..., None]
-        cls_prob = torch.where(v, cls_prob, bg)
-        boxes = torch.where(v, boxes, 0.0)
-        rois = torch.cat([boxes.new_zeros((n, r, 1)), boxes], dim=-1)
-        return cls_prob, rois, torch.where(v, fc7, 0.0)
+            # padded/suppressed rows -> one-hot background (decode skips
+            # them)
+            bg = torch.zeros_like(cls_prob)
+            bg[..., 0] = 1.0
+            v = valid[..., None]
+            cls_prob = torch.where(v, cls_prob, bg)
+            boxes = torch.where(v, boxes, 0.0)
+            rois = torch.cat([boxes.new_zeros((n, r, 1)), boxes], dim=-1)
+            fc7 = torch.where(v, fc7, 0.0)
+        return cls_prob, rois, fc7
 
 
 def apply(state, x: torch.Tensor, num_rois: int = NUM_ROIS,
-          pre_nms: int = PRE_NMS):
-    """The forward with ``state``'s weights."""
-    return apply_net(FasterRCNN, state, x, num_rois, pre_nms)
+          pre_nms: int = PRE_NMS, stage=_no_stage):
+    """The forward with ``state``'s weights; ``stage`` as in
+    ``FasterRCNN.forward``."""
+    return apply_net(FasterRCNN, state, x, num_rois, pre_nms, stage)
 
 
 # ------------------------------------------------------------ weights

@@ -110,10 +110,17 @@ def faster_rcnn_output(ctx, cls_prob, rois, fc7,
                        score_threshold: float = 0.7,
                        nms_threshold: float = 0.3):
     """cls_prob: [R,81]; rois: [R,5] (batch_idx, x1, y1, x2, y2);
-    fc7: [R,4096] per frame -> (bboxes, features of survivors)."""
+    fc7: [R,4096] per frame -> (bboxes, features of survivors). Counts the
+    rows that are not the forward's one-hot background (its proposals) as
+    ``frcnn:rois_valid`` and the boxes kept as ``frcnn:detections``, on
+    the host arrays."""
     out_boxes, out_feats = [], []
+    n_valid = 0
     for t in range(len(cls_prob)):
         probs = np.asarray(cls_prob[t], np.float32).reshape(-1, 81)
+        n_valid += int(np.count_nonzero((probs[:, 0] != 1.0)
+                                        | np.any(probs[:, 1:] != 0.0,
+                                                 axis=1)))
         r = np.asarray(rois[t], np.float32).reshape(-1, 5)
         feats = np.asarray(fc7[t], np.float32).reshape(-1, 4096)
         boxes = []
@@ -131,6 +138,9 @@ def faster_rcnn_output(ctx, cls_prob, rois, fc7,
             out_feats.append(np.stack([feats[b.track_id] for b in best]))
         else:
             out_feats.append(np.zeros((0, 4096), np.float32))
+    if ctx is not None:
+        ctx.count("frcnn:rois_valid", n_valid)
+        ctx.count("frcnn:detections", sum(len(b) for b in out_boxes))
     return out_boxes, out_feats
 
 

@@ -21,6 +21,8 @@ with its experts split over the reserved 'expert' devices under
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -116,6 +118,14 @@ def get_model(name: str) -> Tuple[str, Callable]:
     return _NN_REGISTRY[name]
 
 
+@functools.lru_cache(maxsize=64)
+def _device_mean(mean_colors: tuple, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """The mean as a tensor on ``device``, made once per mean, type and
+    device: the copy to a card synchronises its stream."""
+    return torch.tensor(list(mean_colors), dtype=dtype, device=device)
+
+
 @register_op("NNInput", kind="device", outputs=("array_f32",),
              batch_local=True)
 def nn_input(ctx, frame, input_width: int = -1, input_height: int = -1,
@@ -132,8 +142,8 @@ def nn_input(ctx, frame, input_width: int = -1, input_height: int = -1,
     if normalize:
         x = div(x, 255.0)
     if mean_colors:
-        x = x - torch.tensor(list(mean_colors), dtype=x.dtype,
-                             device=x.device)
+        x = x - _device_mean(tuple(float(m) for m in mean_colors),
+                             x.dtype, x.device)
     if pad_mod > 0:
         ph = (-x.shape[1]) % pad_mod
         pw = (-x.shape[2]) % pad_mod
@@ -248,19 +258,46 @@ def _frcnn_aux(ctx, params):
                        device=_weights_device(ctx))
 
 
+def _frcnn_stages(ctx, device):
+    """``stage(name)`` for the forward: a ``stream:FasterRCNN:<name>``
+    interval of the device's stream (``Profiler.stream_span``, nested in
+    the executor's ``stream:FasterRCNN``), with the packet's meta; no
+    interval without a profiler."""
+    profiler = getattr(ctx, "profiler", None)
+    if profiler is None:
+        return lambda name: contextlib.nullcontext()
+    return lambda name: profiler.stream_span(f"stream:FasterRCNN:{name}",
+                                             device, **ctx.packet)
+
+
 @register_op("FasterRCNN", kind="device", aux=_frcnn_aux,
              outputs=("array_f32", "array_f32", "array_f32"),
              batch_local=True)
-def faster_rcnn_forward(ctx, aux, input, weights_path: Optional[str] = None):
+def faster_rcnn_forward(ctx, aux, input, weights_path: Optional[str] = None,
+                        pre_nms: int = -1, num_rois: int = -1):
     """Faster R-CNN forward (faster_rcnn_kernel.cpp:6-33): input is the
     NNInput-preprocessed frame batch (BGR, caffe mean); emits per frame
     cls_prob [R,81], rois [R,5] (batch, x1, y1, x2, y2 in input pixels —
     im_info scale is 1.0, matching the reference's net_config), fc7
     [R,4096]. Feed FasterRCNNOutput for the 0.7-threshold argmax decode.
 
+    ``pre_nms``: the anchors kept by foreground score before the
+    proposals' NMS; ``num_rois``: the proposals kept after it (R). -1 takes
+    the JAX package's static pool, 2048 and 300 (``faster_rcnn.PRE_NMS``,
+    ``NUM_ROIS``); py-faster-rcnn's TEST settings are 6000 and 300.
+
     ``batch_local``: the top ``pre_nms`` anchors, the proposals' ``nms``
     ([frames, pre_nms] -> R) and the RoIAlign (a frame index a box) are a
     frame's own; the rois' batch column is 0, not the frame's place in
-    the chunk; no host sync."""
+    the chunk; no host sync. Records the trunk, the proposals and the RoI
+    head as ``stream:FasterRCNN:trunk``, ``:proposals`` and ``:roi_head``,
+    and counts the RoI rows (frames x R, from the shapes) as
+    ``frcnn:rois``."""
     x = torch.as_tensor(input).to(torch.float32).contiguous()
-    return get_model("faster_rcnn")[1](aux, x)
+    pre_nms = faster_rcnn.PRE_NMS if pre_nms < 0 else int(pre_nms)
+    num_rois = faster_rcnn.NUM_ROIS if num_rois < 0 else int(num_rois)
+    out = faster_rcnn.apply(aux, x, num_rois, pre_nms,
+                            _frcnn_stages(ctx, x.device))
+    if ctx is not None:
+        ctx.count("frcnn:rois", out[0].shape[0] * out[0].shape[1])
+    return out

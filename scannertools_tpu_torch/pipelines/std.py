@@ -111,6 +111,46 @@ class ObjectDetectionPipeline(Pipeline):
         return self._sc.ops.DetectObjects(frame=self._sources["frame"])
 
 
+def frcnn_test_size(h: int, w: int, scale: int = 600,
+                    max_size: int = 1000):
+    """py-faster-rcnn's test-time size of an h x w frame (lib/fast_rcnn/
+    test.py ``_get_image_blob``): the shorter side to ``scale``, unless the
+    longer would then pass ``max_size`` -> (height, width)."""
+    f = scale / min(h, w)
+    if round(f * max(h, w)) > max_size:
+        f = max_size / max(h, w)
+    return int(round(h * f)), int(round(w * f))
+
+
+class FasterRCNNDetectionPipeline(Pipeline):
+    """Faster R-CNN VGG16 over the frames (the reference's detector chain,
+    faster_rcnn_kernel.cpp and faster_rcnn_output_kernel_cpu.cpp): NNInput
+    (resize to py-faster-rcnn's test size for the first video's frames,
+    caffe BGR means) -> FasterRCNN at its TEST proposal settings (6000
+    anchors before the proposals' NMS, 300 after) -> FasterRCNNOutput
+    (score 0.7, ``best_nms`` 0.3 "min"); stores the boxes, in input
+    pixels. The op also gives the kept boxes' fc7 features, which this
+    runner does not store."""
+
+    job_suffix = "frcnn_objects"
+    scale, max_size = 600, 1000
+    pre_nms, num_rois = 6000, 300
+    mean_colors = (102.9801, 115.9465, 122.7717)
+
+    def build_pipeline(self):
+        sc = self._sc
+        meta = self._videos[0].metadata()
+        h, w = frcnn_test_size(meta.height, meta.width, self.scale,
+                               self.max_size)
+        x = sc.ops.NNInput(frame=self._sources["frame"], input_width=w,
+                           input_height=h, mean_colors=self.mean_colors)
+        cls_prob, rois, fc7 = sc.ops.FasterRCNN(
+            input=x, pre_nms=self.pre_nms, num_rois=self.num_rois)
+        boxes, _ = sc.ops.FasterRCNNOutput(cls_prob=cls_prob, rois=rois,
+                                           fc7=fc7)
+        return boxes
+
+
 class GenderDetectionPipeline(Pipeline):
     job_suffix = "genders"
 
@@ -140,5 +180,6 @@ compute_sharpness = SharpnessPipeline.make_runner()
 detect_faces = FaceDetectionPipeline.make_runner()
 embed_faces = FaceEmbeddingPipeline.make_runner()
 detect_objects = ObjectDetectionPipeline.make_runner()
+detect_objects_frcnn = FasterRCNNDetectionPipeline.make_runner()
 detect_genders = GenderDetectionPipeline.make_runner()
 detect_poses = PoseDetectionPipeline.make_runner()
