@@ -29,6 +29,7 @@ drawn in torch on the run's device (``models/jax_random.py``,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -331,6 +332,13 @@ def _net_rows(fwd, aux, crops: torch.Tensor):
     return split_batch(fwd, states, crops, current_mesh.get())
 
 
+# FaceNet's batch is the compacted crops' valid prefix rounded up to a
+# multiple of this many rows: the net meets at most B / GRANULE + 1 batch
+# shapes (each costs cuDNN its plans once), and a batch has two rows or
+# more wherever B has (``split_batch`` on one-row batches).
+GRANULE = 128
+
+
 def _facenet_aux(ctx, params):
     return _get_params("facenet", params.get("weights_path"),
                        device=_weights_device(ctx))
@@ -346,27 +354,37 @@ def face_embed_forward(ctx, aux, frame, nboxes, valid,
     -> (embs [T,MAX_FACES,128], valid [T,MAX_FACES], overflow [T]).
     Degenerate crops emit the reference's zero vector
     (face_embedding.py:70). ``minibatch`` is accepted for API parity; the
-    crop batch is compacted across the chunk to ``faces_budget``·T crops
+    crops are compacted across the chunk to ``faces_budget``·T slots
     (see _compact_crops); ``overflow`` counts valid faces per frame beyond
-    that budget (zero-embedded; the decode stage warns).
+    that budget (zero-embedded; the decode stage warns). The net runs on
+    the slots' valid prefix only, rounded up to ``GRANULE`` rows, and on
+    none when no slot is valid.
 
     The budget spans the chunk, so the data mesh does not split the op by
     frames (``inner_split``): it compacts on the client's device, as the
-    JAX package's GSPMD run computes it, and splits the [B, 160, 160, 3]
-    crop batch over the mesh (``_net_rows``).
+    JAX package's GSPMD run computes it, and splits the net's batch over
+    the mesh (``_net_rows``).
 
-    Counts the crops the net runs as ``embed:crops`` (B, known from the
-    shapes; ``EmbedDecode`` counts the faces kept)."""
+    Counts the crops the net runs as ``embed:crops`` (``EmbedDecode``
+    counts the faces kept)."""
     x = as_hwc_f32(frame)
     t = x.shape[0]
     k = nboxes.shape[1]
     crops, sel, sel_ok, want = _compact_crops(x, nboxes, valid, 160,
                                               faces_budget)
+    # the valid slots come first (_compact_crops): read their count, the
+    # op's one wait on the device
+    with contextlib.nullcontext() if ctx is None else ctx.wait_device():
+        n = int(sel_ok.sum())
+    nb = min(len(sel), -(-n // GRANULE) * GRANULE)
     if ctx is not None:
-        ctx.count("embed:crops", crops.shape[0])
-    embs = _net_rows(facenet_lib.embed, aux, crops)  # [B, 128]
-    return (_scatter_rows(embs, sel, sel_ok, t, k), valid,
-            _overflow_rows(sel, sel_ok, want, t, k))
+        ctx.count("embed:crops", nb)
+    if nb:
+        embs = _net_rows(facenet_lib.embed, aux, crops[:nb])  # [nb, 128]
+        out = _scatter_rows(embs, sel[:nb], sel_ok[:nb], t, k)
+    else:
+        out = crops.new_zeros((t, k, facenet_lib.EMBEDDING_SIZE))
+    return out, valid, _overflow_rows(sel, sel_ok, want, t, k)
 
 
 @register_op("EmbedDecode", kind="host", outputs=("facenet_embeddings",))

@@ -493,6 +493,55 @@ def test_segment_runs_by_class():
         ("row_local", ["Blur", "PassFrame"])]
 
 
+def test_embed_prefix_below_the_shard_count(eight, tmp_path, monkeypatch):
+    """EmbedFaces over 8 logical devices with GRANULE at 2: three faces in
+    one frame of an 8-frame chunk at faces_budget=4 (B = 32) give FaceNet
+    a batch of 4 rows, fewer than the 8 shards, which ``split_batch``
+    splits into two slices of 2. The rows equal the unsharded run's
+    within FACE_ATOL, and that run's over all 32 slots."""
+    from test_torch_sharded_executor import CROWD, _crowd_frames
+
+    name = "TorchTestMeshPrefixBoxes"
+    if name not in st.registry._OPS:
+        @st.register_python_op(name=name, outputs=("object",))
+        def prefix_boxes(ctx, frames):
+            return [[st.protobufs.BoundingBox(x1=a, y1=b, x2=c, y2=d,
+                                              score=1.0)
+                     for a, b, c, d in CROWD]
+                    if np.asarray(f)[0, 0, 0] == 255 else []
+                    for f in frames]
+
+    def build(sc, frame):
+        boxes = getattr(sc.ops, name)(frames=frame)
+        return [sc.ops.EmbedFaces(frame=frame, bboxes=boxes,
+                                  faces_budget=4)], ["embs"]
+
+    fv = FakeVideo(_crowd_frames())
+    (padded,), _ = _run(st, str(tmp_path / "padded"), fv, build, 8, 1)
+    monkeypatch.setattr(PFO, "GRANULE", 2)
+    batches = []
+    embed = PFO.facenet_lib.embed
+
+    def counted(state, crops):
+        batches.append(len(crops))
+        return embed(state, crops)
+
+    monkeypatch.setattr(PFO.facenet_lib, "embed", counted)
+    (got,), prof = _run(st, str(tmp_path / "p8"), fv, build, 8, 8)
+    (one,), one_prof = _run(st, str(tmp_path / "p1"), fv, build, 8, 1)
+    assert batches == [2, 2, 4]
+    for p in (prof, one_prof):
+        assert [iv["meta"]["n"] for iv in p.intervals("embed:crops")] == [4]
+    assert [(iv["meta"]["segment"], iv["meta"]["by"], iv["meta"]["shards"])
+            for iv in prof.intervals("axis:data:engaged")] == [
+        ("FaceEmbedForward", "inner_split", 8)]
+    assert [len(e) for e in got] == [3] + [0] * 7
+    assert np.abs(got[0]).sum(axis=1).all()
+    for a, b, c in zip(got, one, padded):
+        np.testing.assert_allclose(a, b, rtol=0, atol=FACE_ATOL)
+        np.testing.assert_allclose(a, c, rtol=0, atol=FACE_ATOL)
+
+
 @pytest.mark.parametrize("rows,slices", [(1, [1]), (3, [3]), (5, [3, 2]),
                                          (8, [2, 2, 2, 2]),
                                          (11, [3, 3, 3, 2])])

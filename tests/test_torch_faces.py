@@ -24,6 +24,8 @@ the port's own numpy conversion of the same I420 frames (the JAX package's
 jitted conversion rounds differently, ROADMAP queue 3).
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -185,21 +187,72 @@ def test_embed_budget_compaction(npz):
     assert not full[0, 5:].any()
 
 
-@pytest.mark.parametrize("budget", [2, 32])
-def test_face_embed_forward_matches_jax(npz, budget):
-    """Two frames, crops compacted across them in one call."""
+def _scattered_faces(n, t=2, h=48, w=64, seed=11):
+    """n valid boxes in random slots of t frames, t valid but degenerate
+    ones (the crop rule drops them) in others, and invalid boxes in the
+    rest -> frames, normalized boxes [t, MAX_FACES, 4], valid."""
+    rng = np.random.default_rng(seed + n)
+    x = rng.uniform(0, 255, (t, h, w, 3)).astype(np.float32)
+    lo = rng.uniform(0.0, 0.6, (t, PFO.MAX_FACES, 2))
+    nb = np.concatenate([lo, lo + rng.uniform(0.2, 0.4, lo.shape)],
+                        axis=-1).astype(np.float32)
+    valid = np.zeros((t, PFO.MAX_FACES), bool)
+    slots = rng.permutation(t * PFO.MAX_FACES)
+    valid.reshape(-1)[slots[:n]] = True
+    for s in slots[n:n + t]:
+        nb.reshape(-1, 4)[s] = (0.3, 0.3, 0.305, 0.9)
+        valid.reshape(-1)[s] = True
+    return x, nb, valid
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_embed(budget):
+    return jax.jit(lambda aux, x, nb, v: JFO.face_embed_forward(
+        None, aux, x, nb, v, faces_budget=budget))
+
+
+@pytest.mark.parametrize("budget,n,granule", [
+    pytest.param(2, None, None, id="2"),
+    pytest.param(32, None, None, id="32"),
+    *[pytest.param(6, n, 2, id=f"granule2-n{n}") for n in (0, 1, 2, 3)],
+    pytest.param(6, 20, 2, id="granule2-n20-overflow"),
+    *[pytest.param(6, n, 4, id=f"granule4-n{n}") for n in (0, 1, 3, 4, 5)],
+    pytest.param(6, 20, 4, id="granule4-n20-overflow")])
+def test_face_embed_forward_matches_jax(npz, monkeypatch, budget, n,
+                                        granule):
+    """Two frames, crops compacted across them in one call. With ``n``:
+    n valid boxes scattered over the two frames' slots (and two
+    degenerate ones), and GRANULE set small, so that FaceNet runs the
+    prefix nb = min(B, ceil(n / G)·G) of the B = 2·budget = 12 compacted
+    slots, for n = 0, 1, G - 1, G, G + 1 and n past B. The JAX package
+    runs its net on all B slots: the outputs equal its run, embeddings
+    within ATOL, valid and overflow exactly."""
     trees, paths = npz
     aux = PFO._MODELS["facenet"].from_flax(PW.load_params(paths["facenet"]))
-    x, nb, valid = _faces_input(t=2)
+    x, nb, valid = _faces_input(t=2) if n is None else _scattered_faces(n)
+    if granule is not None:
+        monkeypatch.setattr(PFO, "GRANULE", granule)
+        batches = []
+        embed = PFO.facenet_lib.embed
+
+        def counted(state, crops):
+            batches.append(len(crops))
+            return embed(state, crops)
+
+        monkeypatch.setattr(PFO.facenet_lib, "embed", counted)
     got = [a.numpy() for a in PFO.face_embed_forward(
         None, aux, _t(x), _t(nb), _t(valid), faces_budget=budget)]
-    want = [np.asarray(a) for a in jax.jit(
-        lambda aux, x, nb, v: JFO.face_embed_forward(
-            None, aux, x, nb, v, faces_budget=budget))(
-                trees["facenet"], x, nb, valid)]
+    want = [np.asarray(a) for a in _jax_embed(budget)(
+        trees["facenet"], x, nb, valid)]
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=ATOL)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[2], want[2])
+    if granule is not None:
+        B = 2 * budget
+        assert batches == ([min(B, -(-n // granule) * granule)]
+                           if n else [])
+        assert int(got[2].sum()) == max(0, n - B)
+        assert int((np.abs(got[0]).sum(-1) > 0).sum()) == min(n, B)
 
 
 def test_gender_forward_matches_jax(npz):

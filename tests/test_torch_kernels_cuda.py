@@ -34,8 +34,10 @@ and batches of S on the warp lanes' edges (2-3, 31-33, 63-65, 191-193,
 past the shared-memory limit, V not a multiple of 4, V above 32 and
 emissions off a 16-byte boundary (the 4-byte ring fill), skip flags on
 states 0 and 1 (no state below 0 is read), and no scratch on the warp
-path; both paths' floor probes against their recurrence. Inputs are made
-from a seed with numpy.
+path; both paths' floor probes against their recurrence. FaceNet's run on
+a 144-frame packet's valid crop prefix is held to its run on every
+compacted slot, with one synchronisation in the op. Inputs are made from a
+seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -1046,6 +1048,57 @@ def test_detect_clothing_on_the_card(cuda_device):
         want = op(None, frames, boxes)
         assert [[r.predictions.tolist() for r in f] for f in got] == \
             [[r.predictions.tolist() for r in f] for f in want]
+
+
+# ------------------------------------------------------------ face embedding
+
+
+def test_face_embed_prefix_on_the_card(cuda_device):
+    """A 144-frame packet at about a face a frame (0 to 2, 32 slots a
+    frame, faces_budget=32: B = 4608) on the card: FaceNet's run on the
+    valid prefix rounded up to GRANULE gives the embeddings of its run on
+    all B slots within 1e-5, valid and overflow equal, and the op
+    synchronises once (its read of the valid count)."""
+    import warnings
+
+    from scannertools_tpu_torch.models import facenet as PF
+    from scannertools_tpu_torch.ops import faces as PFO
+
+    rng = np.random.default_rng(74)
+    t, k = 144, PFO.MAX_FACES
+    x = torch.from_numpy(rng.uniform(0, 255, (t, 120, 160, 3)).astype(
+        np.float32)).to(cuda_device)
+    lo = rng.uniform(0.0, 0.6, (t, k, 2))
+    nb = np.concatenate([lo, lo + rng.uniform(0.2, 0.4, lo.shape)], -1)
+    valid = np.zeros((t, k), bool)
+    for f, m in enumerate(rng.integers(0, 3, t)):
+        valid[f, rng.choice(k, m, replace=False)] = True
+    nb = torch.from_numpy(nb.astype(np.float32)).to(cuda_device)
+    valid = torch.from_numpy(valid).to(cuda_device)
+    state = {n: v.to(cuda_device) for n, v in PF.init_params(0).items()}
+
+    crops, sel, sel_ok, want = PFO._compact_crops(x, nb, valid, 160, 32)
+    padded = PFO._scatter_rows(PF.embed(state, crops), sel, sel_ok, t, k)
+    PFO.face_embed_forward(None, state, x, nb, valid, faces_budget=32)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = PFO.face_embed_forward(None, state, x, nb, valid,
+                                         faces_budget=32)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in caught]
+    n = int(valid.sum())
+    assert 100 < n < 200 and PFO.GRANULE < len(sel)
+    err = float((got[0] - padded).abs().max())
+    assert err <= 1e-5, err
+    assert torch.equal(got[1], valid)
+    assert torch.equal(got[2], PFO._overflow_rows(sel, sel_ok, want, t, k))
+    assert int((got[0].abs().sum(-1) > 0).sum()) == n
 
 
 # ---------------------------------------------------------------- ctc_viterbi

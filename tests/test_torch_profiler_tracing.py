@@ -501,32 +501,56 @@ def embed_run(tmp_path, monkeypatch):
     return run
 
 
-@pytest.mark.parametrize("budget", [2, 4, 32])
-def test_crop_counters_on_a_tiny_embed_run(embed_run, budget):
+FACES = {(0, 0, 2): 1, (0, 2, 2): 3, (0, 4, 1): 1}  # valid boxes a packet
+
+
+@pytest.mark.parametrize("budget,granule", [
+    pytest.param(2, None, id="2"), pytest.param(4, None, id="4"),
+    pytest.param(32, None, id="32"), pytest.param(2, 2, id="2-granule2"),
+    pytest.param(4, 2, id="4-granule2")])
+def test_crop_counters_on_a_tiny_embed_run(embed_run, monkeypatch, budget,
+                                           granule):
+    if granule is not None:
+        monkeypatch.setattr(faces_ops, "GRANULE", granule)
+    g = faces_ops.GRANULE
     prof, rows = embed_run(budget)
     assert [len(r) for r in rows] == [len(b) for b in BOXES]
     crops = {_key(iv): iv["meta"]["n"] for iv in prof.intervals(
         "embed:crops")}
     faces = {_key(iv): iv["meta"]["n"] for iv in prof.intervals(
         "embed:faces")}
-    # B = min(T * MAX_FACES, T * budget) crops a packet of T frames
-    assert crops == {(0, 0, 2): 2 * budget, (0, 2, 2): 2 * budget,
-                     (0, 4, 1): budget}
-    assert faces == {(0, 0, 2): 1, (0, 2, 2): 3, (0, 4, 1): 1}
+    # the net's batch: a packet's valid crops rounded up to the granule,
+    # at most B = min(T * MAX_FACES, T * budget)
+    want = {}
+    for key, n in FACES.items():
+        B = key[2] * min(budget, faces_ops.MAX_FACES)
+        want[key] = min(B, -(-n // g) * g)
+    assert crops == want
+    if granule is not None:
+        assert want == {(0, 0, 2): 2, (0, 2, 2): 4, (0, 4, 1): 2}
+    assert faces == FACES
 
 
 def test_crop_counters_add_no_wait(embed_run):
-    """The counters read shapes and host arrays: the only waits are the
+    """The counters read shapes and host arrays: the waits are the
     executor's copies of EmbedDecode's three inputs, before the op (the
-    boxes enter from the host, the embeddings leave from it)."""
+    boxes enter from the host, the embeddings leave from it), and
+    FaceEmbedForward's one read of its valid crop count, inside the op."""
     prof, _ = embed_run(4)
     waits = prof.intervals("host:wait_device")
     decodes = prof.intervals("op:EmbedDecode")
+    forwards = prof.intervals("device:FaceEmbedForward")
     assert sorted(map(_key, waits)) == sorted(
-        [_key(d) for d in decodes] * 3)
+        [_key(d) for d in decodes] * 3 + [_key(f) for f in forwards])
+    inside = []
     for w in waits:
+        f = next(f for f in forwards if _key(f) == _key(w))
         d = next(d for d in decodes if _key(d) == _key(w))
-        assert w["ts"] + w["dur"] <= d["ts"]
+        if f["ts"] <= w["ts"] and w["ts"] + w["dur"] <= f["ts"] + f["dur"]:
+            inside.append(_key(w))
+        else:
+            assert w["ts"] + w["dur"] <= d["ts"]
+    assert sorted(inside) == sorted(map(_key, forwards))
 
 
 # ------------------------------------------------------------- the card
