@@ -4,8 +4,6 @@ client's device, or shard by shard over a mesh of devices.
 This is the replacement for the Scanner engine's run loop (master/worker
 gRPC scheduling + C++ kernel threads, SURVEY §1 L0). The design:
 
-  * Each job (stream) is planned as a sequence of fixed-size frame chunks
-    (``PerfParams.work_packet_size`` analog).
   * Maximal runs of device ops form a segment; a segment runs its ops in
     order on the client's device, so intermediates stay on the device.
   * Temporal stencils (reference ``.stencil({0,1})``, e.g. optical flow) are
@@ -17,29 +15,32 @@ gRPC scheduling + C++ kernel threads, SURVEY §1 L0). The design:
     per-stream sequential order (which this executor is anyway).
   * Whole-stream ops (reference batch=10**7 idiom, shot_detection.py:11)
     accumulate their inputs across chunks and run once at end-of-stream.
-  * Host decode runs in a prefetch thread, ahead of device execution
-    (``prefetch_depth``). On CUDA the same thread uploads each chunk from
-    the staging ring on a side stream; the compute stream waits on the
-    copy's event (see ``_Uploader``).
-  * A one-packet pipeline: a chunk's host tail (the ops after its last
-    device op, and its sink writes) runs after the next chunk's device
-    part is enqueued, so the host's work on chunk n overlaps the card's
-    on chunk n+1. Tails run in chunk order; on CUDA a tail computes and
-    copies on a stream of its own once its chunk's device work is done
-    (see ``_Tail``). The profiler counts ``pipeline:deferred_tail`` a
-    deferred chunk and ``pipeline:not_engaged`` a job whose graph has no
-    host tail.
-  * Multi-device (the JAX package's axes, where GSPMD partitions a jitted
-    segment; here the executor splits it): with
-    ``pipeline_instances_per_node != 1`` and more than one local device a
-    run of a device segment's ops that are all ``row_local`` or
-    ``batch_local`` (registry.py) has its frames padded to a multiple of
-    the data mesh, each shard runs those ops on its device over its
-    contiguous frames plus the temporal halo its stencils read, and the
-    rows are gathered in order on the client's device
-    (``_run_sharded_segment``); an ``inner_split`` op runs whole and
-    splits its net's batch over the mesh itself (``_run_inner_split``);
-    any other op runs whole, counted as ``axis:data:not_engaged``. The
+  * A job (stream; ``Executor._run_job``) runs as fixed-size frame chunks
+    (``work_packet_size``): its axes (``_reserve_axes``), writers and the
+    chunks left to run (``_resume_chunks``), one ``_Source`` an
+    input (decoder, staging ring, upload decision), then the
+    ``_ChunkPipeline``. A prefetch thread decodes ``prefetch_depth``
+    chunks ahead and, on CUDA, uploads each on a side stream
+    (``_Uploader``).
+  * A chunk's device part is every node up to and including the last
+    device op; its host tail is the nodes after it and the sink writes.
+    Per chunk: ``ctx.packet`` is set, the compute stream adopts each
+    upload, the device part runs, uploaded ring slots are released, and
+    a ``_Tail`` keeps what the tail reads. Without a host tail (the job
+    counts ``pipeline:not_engaged``) it finishes at once; else the
+    previous tail is counted (``pipeline:deferred_tail``) and finished
+    after this chunk's device part, so the host's work on chunk n
+    overlaps the card's on chunk n+1 (on CUDA on a stream of its own,
+    ``_Tail``). A tail finishes with its ops, sink writes, the release of
+    host-kept slots, ``Profiler.poll``, the heartbeat and the progress.
+  * End of stream: the whole-stream ops, the deferred sink columns, the
+    commits. Teardown: the sink worker, each ring's cancel, the decode
+    thread's join, each ring and decoder closed, the context closed.
+  * Multi-device (the JAX package's axes; here the executor splits a
+    segment, see ``_run_device_segment``): with
+    ``pipeline_instances_per_node != 1`` and more than one local device,
+    runs of ``row_local``/``batch_local`` ops go shard by shard over a
+    data mesh and ``inner_split`` ops split their nets' batch. The
     pipeline, spatial and expert axes are reservations of devices that
     the ops' own sharded forms use (runtime/context.py); at most one axis
     runs at a time. Static job distribution takes this process's slice
@@ -50,6 +51,7 @@ gRPC scheduling + C++ kernel threads, SURVEY §1 L0). The design:
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import queue
 import threading
@@ -119,15 +121,44 @@ def _run_key(output: OutputNode) -> str:
     )
 
 
-def _clamp(i: int, lo: int, hi: int) -> int:
-    return max(lo, min(hi, i))
+def _root_of(node: Node) -> Node:
+    """The node under a chain of ``SampleNode``s (else ``node``)."""
+    while isinstance(node, SampleNode):
+        node = node.inputs["input"].node
+    return node
+
+
+def _video_meta(stream) -> Dict[str, Any]:
+    """A video input's ``{fps, width, height}``; {} for another input."""
+    if not getattr(stream, "is_video", False):
+        return {}
+    m = stream.metadata()
+    return {"fps": m.fps, "width": m.width, "height": m.height}
+
+
+def _declared_axes(order: List[Node]) -> Dict[str, List[int]]:
+    """The axes the graph's ops declare (OpDef.sp_halo/stages/experts):
+    {"sp": halos, "stages": counts >= 2, "experts": counts > 0}."""
+    declared = {"sp": [], "stages": [], "experts": []}
+    for n in order:
+        if not isinstance(n, OpNode):
+            continue
+        od = get_op(n.name)
+        if od.sp_halo is not None:
+            h = od.sp_halo(n.params)
+            if h is not None:
+                declared["sp"].append(int(h))
+        for key, declare, least in (("stages", od.stages, 2),
+                                    ("experts", od.experts, 1)):
+            k = 0 if declare is None else int(declare(n.params) or 0)
+            if k >= least:
+                declared[key].append(k)
+    return declared
 
 
 def _ser_params(v) -> str:
     """Deterministic serialization for op params (array bytes hashed, not
     elided by repr) — used by the resume signature and the aux cache."""
-    import hashlib
-
     if isinstance(v, np.ndarray):
         return (f"ndarray({v.shape},{v.dtype},"
                 f"{hashlib.sha256(v.tobytes()).hexdigest()})")
@@ -200,15 +231,15 @@ class _Uploader:
     """Host->device upload of decoded chunks, run by the prefetch thread.
 
     On CUDA the copy runs on a side stream, so it overlaps the compute
-    stream's work on the previous chunk. The staging ring is pageable: a
-    pinned ring costs more to page-lock per job than the asynchronous copy
-    saves (PERF.md). An event recorded after the copy is (a) waited on by
-    the compute stream before the chunk is used and (b) synchronized by the
-    prefetch thread before it hands the chunk over — so by the time the
-    consumer releases the ring slot, nothing reads it any more. The
-    uploaded tensor was allocated on the side stream, so the consumer calls
-    ``record_stream`` on it before the allocator may reuse it.
-    """
+    stream's work on the previous chunk. The staging ring is pageable:
+    page-locking it cost 1.62-2.09 s a job on 480-frame jobs, more than
+    the asynchronous copy saved (PERF.md); whether a pinned ring pays on
+    long jobs is open (ROADMAP 4.3). An event recorded after the copy is
+    (a) waited on by the compute stream before the chunk is used and (b)
+    synchronized by the prefetch thread before it hands the chunk over,
+    so nothing reads a ring slot the consumer releases. The uploaded
+    tensor was allocated on the side stream, so the consumer calls
+    ``record_stream`` on it before the allocator may reuse it."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -233,6 +264,136 @@ class _Uploader:
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(val.ready)
         val.data.flat.record_stream(stream)
+
+
+class _Source:
+    """One input of a job: its stream, sampled ``rows``, the rows
+    (``lo``, ``hi``) around a chunk that the graph reads, decoder and
+    ``meta`` (a video's ``{fps, width, height}``), whether the prefetch
+    thread uploads its chunks (``upload``) as I420 planes (``yuv``), and
+    its staging ring."""
+
+    __slots__ = ("node", "stream", "rows", "lo", "hi", "decoder", "meta",
+                 "upload", "yuv", "frame_bytes", "ring")
+
+    def __init__(self, node, stream, rows, meta, decoder, order, need,
+                 ingest, W, depth, host_tail):
+        self.node, self.stream, self.rows = node, stream, rows
+        self.lo, self.hi = need[node.id]
+        self.decoder, self.meta = decoder, meta
+        # When every consumer of this input's frames is a device op, the
+        # prefetch thread uploads right after decode, overlapping the
+        # previous chunk's compute. Mixed host/device consumers keep
+        # frames on the host.
+        frame_node_ids = {n.id for n in order if _root_of(n) is node}
+        consumers = [n for n in order if isinstance(n, OpNode) and any(
+            e.node.id in frame_node_ids for e in n.inputs.values())]
+        self.upload = bool(consumers) and all(
+            get_op(n.name).kind == "device"
+            or get_op(n.name).device_inputs  # host op driving
+            for n in consumers               # device programs
+        ) and decoder is not None
+        # I420 ingest: frames headed straight for the device travel as
+        # 1.5 B/px YUV planes (half the upload bytes of RGB24, no host
+        # swscale), with the YUV->RGB conversion fused into the device op
+        # (hist_i420). Host-consumed frames keep the RGB24 decode — no
+        # upload to save, and host ops expect RGB.
+        can_i420 = getattr(decoder, "i420_supported", False)
+        if ingest == "i420" and decoder is not None and not can_i420:
+            raise ValueError(
+                "PerfParams(ingest='i420') but the source cannot decode to "
+                "planar I420 (non-4:2:0 pixel format, odd dims, or the cv2 "
+                "fallback decoder)")
+        self.yuv = self.upload and can_i420 and ingest in ("auto", "i420")
+        self.frame_bytes = 0
+        self.ring = None
+        if decoder is not None and meta:
+            from ..io.prefetch import ChunkRing
+
+            pixels = meta["height"] * meta["width"]
+            self.frame_bytes = pixels * 3 // 2 if self.yuv else pixels * 3
+            # a deferred tail holds its chunk's host frames while the next
+            # chunk runs: one slot more
+            self.ring = ChunkRing(
+                (W + (self.hi - self.lo)) * self.frame_bytes,
+                depth + 2 + (host_tail and not self.upload))
+
+    @classmethod
+    def open(cls, node, stream, rows, meta, decoder, *plan) -> "_Source":
+        """The source with ``decoder``, warmed ahead of the job, or else
+        (a video input) one opened here and closed if the rest raises."""
+        if decoder is None and getattr(stream, "is_video", False):
+            decoder = stream.decoder()
+        try:
+            return cls(node, stream, rows, meta, decoder, *plan)
+        except BaseException:
+            if decoder is not None:
+                decoder.close()
+            raise
+
+    def read(self, a: int, b: int, packet: dict, uploader: _Uploader,
+             profiler: Profiler) -> _Value:
+        """Rows [a + lo, b + hi] of the input, clamped to its ends, read
+        into the next ring slot (uploaded if ``upload``) or, if it is not
+        a video, loaded and parsed; ``packet`` is the spans' meta."""
+        last = len(self.rows) - 1
+        src_rows = [self.rows[max(0, min(last, p))]
+                    for p in range(a + self.lo, b + self.hi + 1)]
+        decoder, ring, meta = self.decoder, self.ring, self.meta
+        out_buf = None
+        if ring is not None:
+            # slot waits (consumer busy) are not decode time — keep out of
+            # source:read
+            with profiler.span("source:wait_slot", **packet):
+                slot = ring.acquire()
+            n, fb = len(src_rows), self.frame_bytes
+            shape = (n, fb) if self.yuv else (n, meta["height"],
+                                              meta["width"], 3)
+            out_buf = slot[: n * fb].reshape(shape)
+        with profiler.span("source:read", **packet):
+            if decoder is None:
+                elems = list(self.stream.load_bytes(src_rows))
+                parse = typeslib.get_type(self.stream.type_name()).parse
+                return _Value([parse(e) for e in elems], self.lo, self.hi,
+                              False)
+            if self.yuv:
+                planes = decoder.read_frames_i420(src_rows, out=out_buf)
+                if ring is not None:
+                    ring.commit()
+                data = FrameChunk.from_i420(
+                    planes, meta["height"], meta["width"],
+                    full_range=getattr(decoder, "i420_full_range", False),
+                    bt709=getattr(decoder, "i420_bt709", False))
+            else:
+                frames = decoder.read_frames(src_rows, out=out_buf)
+                if ring is not None:
+                    ring.commit()
+                data = FrameChunk.from_hwc(frames)
+            ready = None
+            if self.upload:
+                with profiler.span("source:upload", **packet):
+                    data, ready = uploader.upload(data)
+            return _Value(data, self.lo, self.hi, is_device=self.upload,
+                          ready=ready)
+
+    def release(self, uploaded: bool) -> None:
+        """Recycle the oldest ring slot after the device part if the
+        chunk was ``uploaded`` (the prefetch thread waited for the copy),
+        after the tail if not (host consumers copied what they keep)."""
+        if self.ring is not None and self.upload == uploaded:
+            self.ring.release()
+
+    def cancel(self) -> None:
+        """Wake a producer blocked acquiring a ring slot."""
+        if self.ring is not None:
+            self.ring.cancel()
+
+    def close(self) -> None:
+        """Free the ring and the decoder (the decode thread joined)."""
+        if self.ring is not None:
+            self.ring.close()
+        if self.decoder is not None:
+            self.decoder.close()
 
 
 def _tail_start(order: List[Node]) -> Tuple[int, Optional[str]]:
@@ -320,6 +481,178 @@ class _Tail:
             ctx.settle = None
 
 
+class _ChunkPipeline:
+    """A job's chunks from its sources to its sinks (the one-packet
+    pipeline of the module docstring), then its end of stream.
+    ``pending`` is the deferred tail that waits for the next chunk's
+    device part; ``last`` is the chunk seen last, for the error note."""
+
+    def __init__(self, ex, ctx, order, output, need, ws_nodes, writers,
+                 shard_mode, n_out, W, heartbeat, show_progress):
+        self.ex, self.profiler, self.ctx = ex, ex.profiler, ctx
+        self.job = ctx.job
+        self.need, self.ws_nodes, self.writers = need, ws_nodes, writers
+        self.shard_mode, self.n_out, self.W = shard_mode, n_out, W
+        self.heartbeat, self.show_progress = heartbeat, show_progress
+        self.uploader = _Uploader(ex.device)
+        split, not_engaged = _tail_start(order)
+        self.device_part, self.tail_nodes = order[:split], order[split:]
+        self.tail_reads = {(e.node.id, e.index)
+                           for n in self.tail_nodes + [output]
+                           for e in n.inputs.values()}
+        if not_engaged is not None:
+            self.profiler.count("pipeline:not_engaged", job=self.job,
+                                reason=not_engaged)
+        self.tail_stream = (torch.cuda.Stream(ex.device)
+                            if ex.device.type == "cuda" and self.tail_nodes
+                            else None)
+        # whole-stream accumulators: node.id -> list of per-chunk host inputs
+        self.ws_ids = {n.id for n in ws_nodes}
+        self.ws_acc: Dict[int, List[List[Any]]] = {
+            n.id: [[] for _ in n.inputs] for n in ws_nodes}
+        self.state: Dict[int, Any] = {}
+        self.sources: List[_Source] = []
+        self.prefetched: Optional[_Prefetcher] = None
+        self.sink_worker: Optional[_SinkWorker] = None
+        self.pending: Optional[_Tail] = None
+        self.last = (-1, 0)
+
+    def read(self, a: int):
+        """Chunk ``a`` of every source, on the decode thread ->
+        (a, rows, {(source id, 0): value})."""
+        b = min(a + self.W, self.n_out) - 1
+        T = b - a + 1
+        packet = {"job": self.job, "row": a, "rows": T}
+        return a, T, {(s.node.id, 0): s.read(a, b, packet, self.uploader,
+                                             self.profiler)
+                      for s in self.sources}
+
+    def run(self, chunks: Sequence[int], depth: int, on_drained) -> None:
+        """Every chunk in ``chunks``, decoded ``depth`` ahead (inline at
+        0), in the order the module docstring gives."""
+        ex, ctx = self.ex, self.ctx
+        self.prefetched = _Prefetcher(self.read, chunks, depth=depth,
+                                      on_drained=on_drained)
+        # sink serialization + IO runs off the critical path: chunk N+1's
+        # decode/compute overlaps chunk N's writes (reference save workers)
+        self.sink_worker = _SinkWorker(depth=2 * max(1, len(self.writers)))
+        for a, T, src_vals in self.prefetched:
+            self.last = (a, T)
+            ctx.packet = {"job": self.job, "row": a, "rows": T}
+            for v in src_vals.values():
+                self.uploader.adopt(v)
+            values: Dict[Tuple[int, int], _Value] = dict(src_vals)
+            del src_vals
+            ex._run_chunk(self.device_part, self.need, values, ctx, T,
+                          self.state, self.ws_acc, self.ws_ids)
+            for s in self.sources:
+                s.release(uploaded=True)
+            tail = _Tail(a, T, ctx.packet, {
+                k: v for k, v in values.items() if k in self.tail_reads})
+            del values
+            if not self.tail_nodes:
+                self._finish(tail)
+                continue
+            tail.defer(self.tail_stream)
+            if self.pending is not None:
+                self.profiler.count("pipeline:deferred_tail",
+                                    **self.pending.packet)
+            self.finish_pending()
+            self.pending = tail
+        self.finish_pending()
+
+    def _finish(self, tail: _Tail) -> None:
+        """Chunk ``tail.row``'s host tail and sink writes, then the
+        release of host-kept slots, the poll, heartbeat and progress."""
+        ex, ctx = self.ex, self.ctx
+        self.last = (tail.row, tail.rows)
+        with tail.running(ctx):
+            ex._run_chunk(self.tail_nodes, self.need, tail.values, ctx,
+                          tail.rows, self.state, self.ws_acc, self.ws_ids)
+            # write non-deferred sink columns (async; the _to_host copy
+            # inside stays synchronous)
+            for edge, writer, deferred in self.writers:
+                if deferred:
+                    continue
+                val = tail.values[(edge.node.id, edge.index)]
+                ex._write_column(
+                    writer, edge, val, tail.rows, ctx,
+                    shard_start=tail.row if self.shard_mode else None,
+                    sink_worker=self.sink_worker)
+        for s in self.sources:
+            s.release(uploaded=False)
+        self.profiler.poll()
+        if self.heartbeat is not None:
+            self.heartbeat()
+        if self.show_progress:
+            print(f"  job {self.job}: rows {tail.row + tail.rows}/"
+                  f"{self.n_out}", flush=True)
+
+    def finish_pending(self) -> None:
+        """Finish the pending tail, if there is one."""
+        tail, self.pending = self.pending, None
+        if tail is not None:
+            self._finish(tail)
+
+    def end_of_stream(self) -> None:
+        """The whole-stream ops (each an ``op:<name>`` span over all the
+        rows), the deferred sink columns, then every writer's commit."""
+        # all async writes must land before deferred writes / commit
+        self.sink_worker.flush()
+        ws_out: Dict[Tuple[int, int], List[Any]] = {}
+        for node in self.ws_nodes:
+            opdef = get_op(node.name)
+            args = [_concat_host(parts) for parts in self.ws_acc[node.id]]
+            with self.profiler.span(f"op:{node.name}", job=self.job, row=0,
+                                    rows=self.n_out):
+                res = opdef.fn(self.ctx, *args, **node.params)
+            if opdef.n_outputs == 1:
+                res = (res,)
+            for k, r in enumerate(res):
+                ws_out[(node.id, k)] = list(r)
+        for edge, writer, deferred in self.writers:
+            if not deferred:
+                continue
+            ser = typeslib.get_type(self.ex._column_type(edge)).serialize
+            for el in ws_out[(edge.node.id, edge.index)]:
+                writer.append(b"" if el is None else ser(el))
+        for _, writer, _ in self.writers:
+            if self.shard_mode:
+                writer.commit_from_shards(list(range(0, self.n_out, self.W)))
+            else:
+                writer.commit()
+
+    def abort(self, e: Exception) -> None:
+        """The job failed with ``e``: note the chunk, store the pending
+        tail's chunk as it would have been without the deferral, abort
+        the writers once the sink worker has stopped."""
+        row, rows = self.last
+        e.add_note(f"scannertools_tpu_torch: job {self.job}, chunk rows "
+                   f"{row}..{row + rows - 1} of {self.n_out}")
+        if self.pending is not None:
+            try:
+                self.finish_pending()
+            except Exception as tail_error:
+                e.add_note(f"its previous chunk's host tail failed "
+                           f"too: {tail_error!r}")
+        if self.sink_worker is not None:
+            self.sink_worker.close()
+        for _, writer, _ in self.writers:
+            writer.abort()
+
+    def close(self) -> None:
+        """The job's teardown: the decode thread is woken and joined
+        before the ring slots and decoders it writes are freed."""
+        if self.sink_worker is not None:
+            self.sink_worker.close()
+        for s in self.sources:
+            s.cancel()
+        if self.prefetched is not None:
+            self.prefetched.close()
+        for s in self.sources:
+            s.close()
+
+
 class Executor:
     def __init__(self, client):
         self.client = client
@@ -356,14 +689,8 @@ class Executor:
 
     def _effective_rows(self, order: List[Node], source: InputNode, job: int,
                         n_rows: int) -> List[int]:
-        def root_of(s: Node) -> Node:
-            n = s
-            while isinstance(n, SampleNode):
-                n = n.inputs["input"].node
-            return n
-
         samples = [n for n in order if isinstance(n, SampleNode)
-                   and root_of(n) is source]
+                   and _root_of(n) is source]
         # chained samplers compose (Range of a Stride etc.). *Parallel*
         # branches never reach here: run() partitions the output columns
         # per sampling branch (_sampling_groups) and launches one sub-run
@@ -701,9 +1028,6 @@ class Executor:
         mtime), so no structurally different run can reuse foreign shards.
         Same formula as the JAX package's, so either package resumes the
         other's shards."""
-        import hashlib
-        import os as _os
-
         pos = {n.id: i for i, n in enumerate(order)}
         ser = _ser_params
 
@@ -730,7 +1054,7 @@ class Executor:
             if getattr(in_stream, "is_video", False):
                 try:
                     p = in_stream.video_path()
-                    st = _os.stat(p)
+                    st = os.stat(p)
                     ident += [p, st.st_size, int(st.st_mtime)]
                 except (AttributeError, OSError):
                     pass
@@ -747,47 +1071,93 @@ class Executor:
         ``on_decode_drained`` runs on the decode thread once its last chunk
         is decoded."""
         in_streams = [s.streams[job] for s in sources]
-        stream_meta = {}
-        for ins in in_streams:
-            if getattr(ins, "is_video", False):
-                m = ins.metadata()
-                stream_meta = {"fps": m.fps, "width": m.width,
-                               "height": m.height}
-                break
-        # Axis reservations are METADATA-driven: devices are reserved only
-        # when some op in this graph DECLARES the axis
-        # (OpDef.sp_halo/stages/experts) — a requested axis nothing can
-        # consume reserves nothing (and is counted as not engaged). The
-        # axes would split the same devices differently, so combining them
-        # (or one with a data mesh of more than one device) is rejected up
-        # front, as the JAX package does.
-        declared = {"sp": [], "stages": [], "experts": []}
-        for n in order:
-            if not isinstance(n, OpNode):
-                continue
-            od = get_op(n.name)
-            if od.sp_halo is not None:
-                h = od.sp_halo(n.params)
-                if h is not None:
-                    declared["sp"].append(int(h))
-            if od.stages is not None:
-                L = int(od.stages(n.params) or 0)
-                if L >= 2:
-                    declared["stages"].append(L)
-            if od.experts is not None:
-                E = int(od.experts(n.params) or 0)
-                if E > 0:
-                    declared["experts"].append(E)
+        metas = [_video_meta(ins) for ins in in_streams]
+        stream_meta = next((m for m in metas if m), {})
+        perf, reserved = self._reserve_axes(order, need, sources, job, perf,
+                                            stream_meta)
+        ctx = OpContext(job=job, stream_meta=stream_meta,
+                        resources_dir=self.client.config.resources_dir(),
+                        profiler=self.profiler, device=self.device,
+                        pipe_devices=reserved.get("pipe"),
+                        sp_devices=reserved.get("sp"),
+                        ep_devices=reserved.get("expert"))
+        # the device clocks against perf_counter, for the stream spans: the
+        # card is idle between jobs, so the wait is short
+        for d in ([self.device] if self._mesh is None
+                  else [self.device] + self._mesh.device_list()):
+            self.profiler.calibrate(d)
+
+        # rows are zipped across inputs (reference N-input jobs): every
+        # source must sample down to the same element count
+        rows_per = [self._effective_rows(order, src, job, len(ins))
+                    for src, ins in zip(sources, in_streams)]
+        n_out = len(rows_per[0])
+        if any(len(r) != n_out for r in rows_per):
+            raise ValueError(
+                "multi-input graphs zip rows 1:1; effective row counts "
+                f"differ per input: {[len(r) for r in rows_per]}")
+        W = perf.work_packet_size
+        ws_nodes = [n for n in order if isinstance(n, OpNode)
+                    and get_op(n.name).kind == "whole_stream"]
+        # sink columns: (edge, writer, deferred?). Strict 1:1 — silently
+        # mapping excess columns onto the last sink would open two writers
+        # on the same stream (interleaved corruption).
+        if len(sink_streams) != len(output.columns):
+            raise ValueError(
+                f"job {job}: {len(output.columns)} output column(s) but "
+                f"{len(sink_streams)} sink stream(s); pass one sink per "
+                "column (per-job tuples for multi-column outputs)")
+        writers = [(edge, sink.writer(self._column_type(edge)),
+                    any(edge.node is n for n in ws_nodes))
+                   for edge, sink in zip(output.columns, sink_streams)]
+        shard_mode, chunks = self._resume_chunks(
+            order, output, writers, rows_per, W, in_streams, perf.ingest,
+            job, resume, show_progress)
+
+        # io_packet_size expresses how far ahead the host may read
+        # (reference io packets); realized here as prefetch depth in chunks.
+        # The staging ring needs depth+2 slots: `depth` queued + 1 parked in
+        # the queue handoff + 1 being decoded. prefetch_depth=0 disables the
+        # decode thread entirely (strict single-thread alternation).
+        depth = 0 if perf.prefetch_depth <= 0 else max(
+            perf.prefetch_depth,
+            perf.io_packet_size // max(perf.work_packet_size, 1))
+        pipe = _ChunkPipeline(self, ctx, order, output, need, ws_nodes,
+                              writers, shard_mode, n_out, W, heartbeat,
+                              show_progress)
+        try:
+            for si, (src, ins) in enumerate(zip(sources, in_streams)):
+                pipe.sources.append(_Source.open(
+                    src, ins, rows_per[si], metas[si],
+                    (warm or {}).pop((job, si), None), order, need,
+                    perf.ingest, W, depth, bool(pipe.tail_nodes)))
+            pipe.run(chunks, depth, on_decode_drained)
+            pipe.end_of_stream()
+        except Exception as e:
+            pipe.abort(e)
+            raise
+        finally:
+            pipe.close()
+            ctx.close()
+
+    def _reserve_axes(self, order, need, sources, job, perf, stream_meta):
+        """-> (``perf``, resolved if ``auto``; {axis: reserved devices}).
+        Axis reservations are METADATA-driven: devices are reserved only
+        when some op in this graph DECLARES the axis
+        (OpDef.sp_halo/stages/experts) — a requested axis nothing can
+        consume reserves nothing (and is counted as not engaged). The
+        axes would split the same devices differently, so combining them
+        (or one with a data mesh of more than one device) is rejected up
+        front, as the JAX package does."""
+        declared = _declared_axes(order)
         devs = local_devices(self.device)
         # PerfParams.estimate() defers packet and axis sizing to here,
         # where the job's frame geometry, stencil halo and the graph's
         # declared axes are known
         if perf.auto:
+            halo = max([0] + [need[s.id][1] - need[s.id][0]
+                              for s in sources])
             frame_bytes = None
-            halo = 0
-            for src in sources:
-                s_lo, s_hi = need[src.id]
-                halo = max(halo, s_hi - s_lo)
             if stream_meta.get("width"):
                 frame_bytes = stream_meta["width"] * stream_meta["height"] * 3
             perf = perf.resolve(
@@ -825,403 +1195,38 @@ class Executor:
                     f"axis:{axis}:not_engaged", job=job,
                     reason="no op declares it" if not declared[decl]
                     else f"{len(devs)} devices < {size}")
-        ctx = OpContext(
-            job=job,
-            stream_meta=stream_meta,
-            resources_dir=self.client.config.resources_dir(),
-            profiler=self.profiler,
-            device=self.device,
-            pipe_devices=reserved.get("pipe"),
-            sp_devices=reserved.get("sp"),
-            ep_devices=reserved.get("expert"),
-        )
-        # the device clocks against perf_counter, for the stream spans: the
-        # card is idle between jobs, so the wait is short
-        for d in ([self.device] if self._mesh is None
-                  else [self.device] + self._mesh.device_list()):
-            self.profiler.calibrate(d)
+        return perf, reserved
 
-        # rows are zipped across inputs (reference N-input jobs): every
-        # source must sample down to the same element count
-        rows_per = [self._effective_rows(order, src, job, len(ins))
-                    for src, ins in zip(sources, in_streams)]
+    def _resume_chunks(self, order, output, writers, rows_per, W, in_streams,
+                       ingest, job, resume, show_progress):
+        """-> (shard mode?, the chunks to run). Chunk-granular resume
+        (CacheMode.Resume; SURVEY §5 shard manifests) requires
+        shard-capable writers and a chunk-local graph (no stateful carry,
+        no whole-stream accumulation)."""
         n_out = len(rows_per[0])
-        if any(len(r) != n_out for r in rows_per):
-            raise ValueError(
-                "multi-input graphs zip rows 1:1; effective row counts "
-                f"differ per input: {[len(r) for r in rows_per]}"
-            )
-        W = perf.work_packet_size
-
-        # Column plumbing -------------------------------------------------
-        op_nodes = [n for n in order if isinstance(n, OpNode)]
-        ws_nodes = [n for n in op_nodes if get_op(n.name).kind == "whole_stream"]
-        ws_ids = {n.id for n in ws_nodes}
-        # sink columns: (edge, writer, deferred?). Strict 1:1 — silently
-        # mapping excess columns onto the last sink would open two writers
-        # on the same stream (interleaved corruption).
-        if len(sink_streams) != len(output.columns):
-            raise ValueError(
-                f"job {job}: {len(output.columns)} output column(s) but "
-                f"{len(sink_streams)} sink stream(s); pass one sink per "
-                "column (per-job tuples for multi-column outputs)"
-            )
-        writers = []
-        for i, edge in enumerate(output.columns):
-            tname = self._column_type(edge)
-            writers.append(
-                (edge, sink_streams[i].writer(tname), edge.node.id in ws_ids))
-
-        # whole-stream accumulators: node.id -> list of per-chunk host inputs
-        ws_acc: Dict[int, List[List[Any]]] = {
-            n.id: [[] for _ in n.inputs] for n in ws_nodes
-        }
-        state: Dict[int, Any] = {}
-
         all_chunks = list(range(0, n_out, W))
-        chunks = all_chunks
-
-        # Chunk-granular resume (CacheMode.Resume; SURVEY §5 shard
-        # manifests): requires shard-capable writers and a chunk-local graph
-        # (no stateful carry, no whole-stream accumulation).
-        stateful = any(get_op(n.name).kind == "stateful" for n in op_nodes)
-        shard_mode = (
-            resume and not stateful and not ws_nodes
-            and all(w.supports_shards for _, w, _ in writers)
-        )
-        if shard_mode:
-            # namespace shards by the run signature so a changed sampling /
-            # graph wiring / input video / sinked column / chunk size can
-            # never resume from foreign shards
-            sig = self._resume_signature(order, output, rows_per, W,
-                                         in_streams, perf.ingest)
-            for _, w, _ in writers:
-                w.shard_key = sig
-            done = None
-            for _, w, _ in writers:
-                shards = w.existing_shards()
-                mine = {
-                    a for a in all_chunks
-                    if shards.get(a) == min(a + W, n_out) - a
-                }
-                done = mine if done is None else (done & mine)
-            done = done or set()
-            chunks = [a for a in all_chunks if a not in done]
-            if done and show_progress:
-                print(f"  job {job}: resuming, {len(done)}/"
-                      f"{len(all_chunks)} chunks already done", flush=True)
-
-        # io_packet_size expresses how far ahead the host may read
-        # (reference io packets); realized here as prefetch depth in chunks.
-        # The staging ring needs depth+2 slots: `depth` queued + 1 parked in
-        # the queue handoff + 1 being decoded. prefetch_depth=0 disables the
-        # decode thread entirely (strict single-thread alternation).
-        depth = 0 if perf.prefetch_depth <= 0 else max(
-            perf.prefetch_depth,
-            perf.io_packet_size // max(perf.work_packet_size, 1))
-
-        # Per-source decode state (multi-source graphs zip N inputs):
-        # decoder + staging ring per video input, prefetch-upload decision
-        # per input's own consumer set.
-        uploader = _Uploader(self.device)
-        decoders: List[Any] = []
-        rings: List[Any] = []
-        uploads: List[bool] = []
-        yuvs: List[bool] = []
-        metas: List[Dict[str, Any]] = []
-        prefetched = None
-        sink_worker = None
-        last_chunk = [-1, 0]
-        # A chunk runs in two parts: its device part, every node up to and
-        # including the last device op, and its host tail, the nodes after
-        # it with the sink writes. When the tail holds an op, chunk n's
-        # tail runs after chunk n+1's device part is enqueued, so the host
-        # works while the card does (a one-packet pipeline); tails run in
-        # chunk order.
-        split, not_engaged = _tail_start(order)
-        device_part, tail_nodes = order[:split], order[split:]
-        tail_reads = {(e.node.id, e.index) for n in tail_nodes + [output]
-                      for e in n.inputs.values()}
-        if not_engaged is not None:
-            self.profiler.count("pipeline:not_engaged", job=job,
-                                reason=not_engaged)
-        tail_stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" and tail_nodes else None)
-        pending: Optional[_Tail] = None
-        try:
-            for si, (src, ins) in enumerate(zip(sources, in_streams)):
-                decoder = (warm or {}).pop((job, si), None)
-                if decoder is None and getattr(ins, "is_video", False):
-                    decoder = ins.decoder()
-                decoders.append(decoder)
-                meta = {}
-                if decoder is not None:
-                    m = ins.metadata()
-                    meta = {"fps": m.fps, "width": m.width,
-                            "height": m.height}
-
-                # When every consumer of this input's frames is a device
-                # op, the prefetch thread uploads right after decode,
-                # overlapping the previous chunk's compute. Mixed host/device
-                # consumers keep frames on the host.
-                def _root(n):
-                    while isinstance(n, SampleNode):
-                        n = n.inputs["input"].node
-                    return n
-
-                frame_node_ids = {src.id} | {
-                    n.id for n in order
-                    if isinstance(n, SampleNode) and _root(n) is src
-                }
-                consumers = [
-                    n for n in order if isinstance(n, OpNode)
-                    and any(e.node.id in frame_node_ids
-                            for e in n.inputs.values())
-                ]
-                upload = bool(consumers) and all(
-                    get_op(n.name).kind == "device"
-                    or get_op(n.name).device_inputs  # host op driving
-                    for n in consumers               # device programs
-                ) and decoder is not None
-                # I420 ingest: frames headed straight for the device travel
-                # as 1.5 B/px YUV planes (half the upload bytes of RGB24, no
-                # host swscale), with the YUV->RGB conversion fused into the
-                # device op (hist_i420). Host-consumed frames keep the RGB24
-                # decode — no upload to save, and host ops expect RGB.
-                can_i420 = getattr(decoder, "i420_supported", False)
-                if perf.ingest == "i420" and decoder is not None \
-                        and not can_i420:
-                    raise ValueError(
-                        "PerfParams(ingest='i420') but the source cannot "
-                        "decode to planar I420 (non-4:2:0 pixel format, odd "
-                        "dims, or the cv2 fallback decoder)")
-                yuv = (upload and can_i420
-                       and perf.ingest in ("auto", "i420"))
-                ring = None
-                if decoder is not None and meta:
-                    from ..io.prefetch import ChunkRing
-
-                    s_lo, s_hi = need[src.id]
-                    frame_bytes = meta["height"] * meta["width"] * 3
-                    if yuv:
-                        frame_bytes = meta["height"] * meta["width"] * 3 // 2
-                    # a deferred tail holds its chunk's host frames while
-                    # the next chunk runs: one slot more
-                    ring = ChunkRing((W + (s_hi - s_lo)) * frame_bytes,
-                                     depth + 2 + (bool(tail_nodes)
-                                                  and not upload))
-                rings.append(ring)
-                uploads.append(upload)
-                yuvs.append(yuv)
-                metas.append(meta)
-
-            def decode_chunk(a: int):
-                b = min(a + W, n_out) - 1
-                T = b - a + 1
-                packet = {"job": job, "row": a, "rows": T}
-                vals: Dict[Tuple[int, int], _Value] = {}
-                for si, (src, ins) in enumerate(zip(sources, in_streams)):
-                    s_lo, s_hi = need[src.id]
-                    rows = rows_per[si]
-                    positions = [
-                        _clamp(p, 0, n_out - 1)
-                        for p in range(a + s_lo, b + s_hi + 1)
-                    ]
-                    src_rows = [rows[p] for p in positions]
-                    decoder, ring, meta = decoders[si], rings[si], metas[si]
-                    yuv = yuvs[si]
-                    out_buf = None
-                    if decoder is not None and ring is not None:
-                        # slot waits (consumer busy) are not decode
-                        # time — keep out of source:read
-                        with self.profiler.span("source:wait_slot",
-                                                **packet):
-                            slot = ring.acquire()
-                        h, w = meta["height"], meta["width"]
-                        if yuv:
-                            fb = h * w * 3 // 2
-                            out_buf = slot[: len(src_rows) * fb].reshape(
-                                len(src_rows), fb
-                            )
-                        else:
-                            fb = h * w * 3
-                            out_buf = slot[: len(src_rows) * fb].reshape(
-                                len(src_rows), h, w, 3
-                            )
-                    with self.profiler.span("source:read", **packet):
-                        if decoder is not None:
-                            if yuv:
-                                planes = decoder.read_frames_i420(
-                                    src_rows, out=out_buf)
-                                if ring is not None:
-                                    ring.commit()
-                                data = FrameChunk.from_i420(
-                                    planes, meta["height"], meta["width"],
-                                    full_range=getattr(
-                                        decoder, "i420_full_range", False),
-                                    bt709=getattr(decoder, "i420_bt709",
-                                                  False))
-                            else:
-                                frames = decoder.read_frames(
-                                    src_rows, out=out_buf)
-                                if ring is not None:
-                                    ring.commit()
-                                data = FrameChunk.from_hwc(frames)
-                            ready = None
-                            if uploads[si]:
-                                with self.profiler.span("source:upload",
-                                                        **packet):
-                                    data, ready = uploader.upload(data)
-                            vals[(src.id, 0)] = _Value(
-                                data, s_lo, s_hi, is_device=uploads[si],
-                                ready=ready)
-                        else:
-                            elems = list(ins.load_bytes(src_rows))
-                            parse = typeslib.get_type(
-                                ins.type_name()).parse
-                            vals[(src.id, 0)] = _Value(
-                                [parse(e) for e in elems], s_lo, s_hi, False)
-                return a, T, vals
-
-            prefetched = _Prefetcher(decode_chunk, chunks, depth=depth,
-                                     on_drained=on_decode_drained)
-            # sink serialization + IO runs off the critical path: chunk
-            # N+1's decode/compute overlaps chunk N's writes (reference save
-            # workers)
-            sink_worker = _SinkWorker(depth=2 * max(1, len(writers)))
-
-            def finish(tail: _Tail) -> None:
-                """Chunk ``tail.row``'s host tail, then its sink writes,
-                the release of its ring slots not yet released, and the
-                chunk's poll, heartbeat and progress."""
-                last_chunk[:] = (tail.row, tail.rows)
-                with tail.running(ctx):
-                    self._run_chunk(tail_nodes, need, tail.values, ctx,
-                                    tail.rows, state, ws_acc, ws_ids)
-                    # write non-deferred sink columns (async; the _to_host
-                    # copy inside stays synchronous)
-                    for edge, writer, deferred in writers:
-                        if deferred:
-                            continue
-                        val = tail.values[(edge.node.id, edge.index)]
-                        self._write_column(
-                            writer, edge, val, tail.rows, ctx,
-                            shard_start=tail.row if shard_mode else None,
-                            sink_worker=sink_worker)
-                for ring, upload in zip(rings, uploads):
-                    # host consumers copied what they keep: the staging
-                    # slot can be recycled
-                    if ring is not None and not upload:
-                        ring.release()
-                self.profiler.poll()
-                if heartbeat is not None:
-                    heartbeat()
-                if show_progress:
-                    print(f"  job {job}: rows {tail.row + tail.rows}/{n_out}",
-                          flush=True)
-
-            def finish_pending() -> None:
-                nonlocal pending
-                tail, pending = pending, None
-                if tail is not None:
-                    finish(tail)
-
-            for a, T, src_vals in prefetched:
-                last_chunk[:] = (a, T)
-                ctx.packet = {"job": job, "row": a, "rows": T}
-                for v in src_vals.values():
-                    uploader.adopt(v)
-                values: Dict[Tuple[int, int], _Value] = dict(src_vals)
-                del src_vals
-                self._run_chunk(device_part, need, values, ctx, T, state,
-                                ws_acc, ws_ids)
-                for ring, upload in zip(rings, uploads):
-                    # the upload of this chunk completed before the prefetch
-                    # thread handed it over: nothing reads the slot now
-                    if ring is not None and upload:
-                        ring.release()
-                tail = _Tail(a, T, ctx.packet, {
-                    k: v for k, v in values.items() if k in tail_reads})
-                del values
-                if not tail_nodes:
-                    finish(tail)
-                    continue
-                tail.defer(tail_stream)
-                if pending is not None:
-                    self.profiler.count("pipeline:deferred_tail",
-                                        **pending.packet)
-                finish_pending()
-                pending = tail
-            finish_pending()
-
-            # all async writes must land before deferred writes / commit
-            sink_worker.flush()
-
-            # end-of-stream: whole-stream ops then deferred sinks
-            ws_out: Dict[Tuple[int, int], List[Any]] = {}
-            for node in ws_nodes:
-                opdef = get_op(node.name)
-                args = [
-                    _concat_host(parts) for parts in ws_acc[node.id]
-                ]
-                with self.profiler.span(f"op:{node.name}", job=job, row=0,
-                                        rows=n_out):
-                    res = opdef.fn(ctx, *args, **node.params)
-                if opdef.n_outputs == 1:
-                    ws_out[(node.id, 0)] = list(res)
-                else:
-                    for k, r in enumerate(res):
-                        ws_out[(node.id, k)] = list(r)
-            for edge, writer, deferred in writers:
-                if not deferred:
-                    continue
-                tname = self._column_type(edge)
-                ser = typeslib.get_type(tname).serialize
-                for el in ws_out[(edge.node.id, edge.index)]:
-                    writer.append(b"" if el is None else ser(el))
-
-            for _, writer, _ in writers:
-                if shard_mode:
-                    writer.commit_from_shards(all_chunks)
-                else:
-                    writer.commit()
-        except Exception as e:
-            e.add_note(
-                f"scannertools_tpu_torch: job {job}, chunk rows "
-                f"{last_chunk[0]}..{last_chunk[0] + last_chunk[1] - 1} "
-                f"of {n_out}"
-            )
-            if pending is not None:
-                # the chunk before the one that failed is stored as it
-                # would have been without the deferral
-                try:
-                    finish_pending()
-                except Exception as tail_error:
-                    e.add_note(f"its previous chunk's host tail failed "
-                               f"too: {tail_error!r}")
-            if sink_worker is not None:
-                sink_worker.close()  # no write may race the aborts below
-            for _, writer, _ in writers:
-                writer.abort()
-            raise
-        finally:
-            if sink_worker is not None:
-                sink_worker.close()
-            # order matters: wake a producer blocked in ring.acquire, join
-            # the decode thread (each upload it started has completed), and
-            # only then free ring slots / the decoders it may have been
-            # writing into
-            live_rings = [r for r in rings if r is not None]
-            for ring in live_rings:
-                ring.cancel()
-            if prefetched is not None:
-                prefetched.close()
-            for ring in live_rings:
-                ring.close()
-            for decoder in decoders:
-                if decoder is not None:
-                    decoder.close()
-            ctx.close()
+        kinds = {get_op(n.name).kind for n in order if isinstance(n, OpNode)}
+        if not (resume and not kinds & {"stateful", "whole_stream"}
+                and all(w.supports_shards for _, w, _ in writers)):
+            return False, all_chunks
+        # namespace shards by the run signature so a changed sampling /
+        # graph wiring / input video / sinked column / chunk size can
+        # never resume from foreign shards
+        sig = self._resume_signature(order, output, rows_per, W, in_streams,
+                                     ingest)
+        for _, w, _ in writers:
+            w.shard_key = sig
+        done = None
+        for _, w, _ in writers:
+            shards = w.existing_shards()
+            mine = {a for a in all_chunks
+                    if shards.get(a) == min(a + W, n_out) - a}
+            done = mine if done is None else (done & mine)
+        done = done or set()
+        if done and show_progress:
+            print(f"  job {job}: resuming, {len(done)}/"
+                  f"{len(all_chunks)} chunks already done", flush=True)
+        return True, [a for a in all_chunks if a not in done]
 
     # ----------------------------------------------------------- chunk exec
 
@@ -1468,15 +1473,11 @@ class Executor:
         if isinstance(node, OpNode):
             return get_op(node.name).outputs[edge.index]
         if isinstance(node, (InputNode, SampleNode)):
-            src = node
-            while isinstance(src, SampleNode):
-                src = src.inputs["input"].node
-            s = src.streams[0]
-            return s.type_name()
+            return _root_of(node).streams[0].type_name()
         raise ValueError(f"cannot sink from {node}")
 
     def _write_column(self, writer, edge, val: _Value, T: int,
-                      ctx: OpContext, shard_start=None, sink_worker=None):
+                      ctx: OpContext, sink_worker, shard_start=None):
         """Store a chunk's rows of a column; ``ctx.packet`` is the spans'
         meta."""
         packet = ctx.packet
@@ -1511,10 +1512,7 @@ class Executor:
                     for el in elements:
                         writer.append(el)
 
-        if sink_worker is not None:
-            sink_worker.submit(emit)
-        else:
-            emit()
+        sink_worker.submit(emit)
 
 
 def _rows_of(data, start: int, length: int):

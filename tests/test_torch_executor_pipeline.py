@@ -237,6 +237,59 @@ def test_tail_spans_carry_their_own_chunk(hist_shots, name):
     assert {_key(iv) for iv in prof.intervals(name)} == _packets(7, 2, jobs=2)
 
 
+ROW_KEYS = ("job", "row", "rows")
+#: what one chunk of the hist_shots graph records, on the CPU: the names
+#: the benchmark's metrics read, each with its meta keys
+CHUNK_EVENTS = sorted([
+    ("source:wait_slot", ROW_KEYS), ("source:read", ROW_KEYS),
+    ("source:upload", ROW_KEYS), ("device:Histogram", ROW_KEYS),
+    # ShotBoundaries' accumulated input and the histogram sink's copy
+    ("host:wait_device", ROW_KEYS), ("host:wait_device", ROW_KEYS),
+    ("sink:write", ROW_KEYS),
+])
+
+
+@pytest.mark.parametrize("depth", [0, None])
+def test_span_and_counter_names_per_chunk(hist_shots, tmp_path, depth):
+    import json
+
+    prof, _, _ = hist_shots(**({} if depth is None else
+                               {"prefetch_depth": depth}))
+    prof.write_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    chunks, per_job = {}, []
+    for ev in events:
+        m = ev["args"]
+        if "row" in m and m["rows"] != 7:
+            chunks.setdefault((m["job"], m["row"], m["rows"]), []).append(
+                (ev["name"], tuple(sorted(m))))
+        else:
+            per_job.append((ev["name"], tuple(sorted(m.items()))))
+    last = {(0, 6, 1), (1, 6, 1)}
+    assert set(chunks) == _packets(7, 2, jobs=2)
+    for key, got in chunks.items():
+        deferred = [] if key in last else [("pipeline:deferred_tail",
+                                            ROW_KEYS)]
+        assert sorted(got) == sorted(CHUNK_EVENTS + deferred), key
+    assert sorted(per_job) == sorted([
+        ("job:run", (("job", 0),)), ("job:run", (("job", 1),)),
+        ("job:warm", (("job", 1),)),
+        ("op:ShotBoundaries", (("job", 0), ("row", 0), ("rows", 7))),
+        ("op:ShotBoundaries", (("job", 1), ("row", 0), ("rows", 7))),
+    ])
+    # the slot wait ends before the read, which holds the upload
+    spans = {}
+    for ev in events:
+        if ev["name"].startswith("source:"):
+            spans[(ev["name"], ev["args"]["job"], ev["args"]["row"])] = ev
+    for job, row, _ in _packets(7, 2, jobs=2):
+        wait, read, up = (spans[(n, job, row)] for n in (
+            "source:wait_slot", "source:read", "source:upload"))
+        assert wait["ts"] + wait["dur"] <= read["ts"] <= up["ts"]
+        assert up["ts"] + up["dur"] <= read["ts"] + read["dur"]
+
+
 def test_a_graph_ending_on_a_device_op_keeps_todays_order(tmp_path):
     sc = st.Client(db_path=str(tmp_path / "db"), device="cpu")
     frames = [_frames(n=5, seed=s) for s in (2, 3)]
