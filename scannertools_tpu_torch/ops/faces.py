@@ -366,7 +366,8 @@ def face_embed_forward(ctx, aux, frame, nboxes, valid,
     the mesh (``_net_rows``).
 
     Counts the crops the net runs as ``embed:crops`` (``EmbedDecode``
-    counts the faces kept)."""
+    counts the faces kept), and as ``embed:fold`` each folded weight set
+    the net builds (``facenet.folded``: once per weight set and device)."""
     x = as_hwc_f32(frame)
     t = x.shape[0]
     k = nboxes.shape[1]
@@ -380,7 +381,10 @@ def face_embed_forward(ctx, aux, frame, nboxes, valid,
     if ctx is not None:
         ctx.count("embed:crops", nb)
     if nb:
+        builds = facenet_lib.fold.builds
         embs = _net_rows(facenet_lib.embed, aux, crops[:nb])  # [nb, 128]
+        if ctx is not None and facenet_lib.fold.builds > builds:
+            ctx.count("embed:fold", facenet_lib.fold.builds - builds)
         out = _scatter_rows(embs, sel[:nb], sel_ok[:nb], t, k)
     else:
         out = crops.new_zeros((t, k, facenet_lib.EMBEDDING_SIZE))

@@ -178,7 +178,7 @@ def tp_model(name: str, mesh: Optional[Mesh] = None,
     """A registry model (``ops/nn_generic.py``'s names) -> (sharded state,
     tp ``run(x)``) over ``mesh`` (default: one data row over every local
     device of ``device``'s type, a maximal model axis)."""
-    from ..ops.faces import _get_params
+    from ..ops.faces import _MODELS, _get_params
     from ..ops.nn_generic import get_model
 
     if mesh is None:
@@ -188,7 +188,10 @@ def tp_model(name: str, mesh: Optional[Mesh] = None,
             grid[0, i] = d
         mesh = Mesh(grid, ("data", "model"))
     model, apply_fn = get_model(name)
-    sharded = shard_params(
-        _get_params(model, weights_path, device=mesh.devices.flat[0]), mesh,
-        min_size=min_size)
+    state = _get_params(model, weights_path, device=mesh.devices.flat[0])
+    # a net that folds its weights before its forward (FaceNet) splits the
+    # folded ones: the split layers are the ones its forward runs
+    fold = getattr(_MODELS.get(model), "fold", None)
+    sharded = shard_params(state if fold is None else fold(state), mesh,
+                           min_size=min_size)
     return sharded, tp_apply(apply_fn, sharded, mesh)

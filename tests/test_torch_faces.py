@@ -255,6 +255,29 @@ def test_face_embed_forward_matches_jax(npz, monkeypatch, budget, n,
         assert int((np.abs(got[0]).sum(-1) > 0).sum()) == min(n, B)
 
 
+def test_face_embed_forward_counts_one_fold(monkeypatch):
+    """Two packets through ``face_embed_forward`` on one raw state fold
+    it once: one ``embed:fold`` event, ``fold.builds`` up by one, and the
+    second packet's embeddings equal the first's."""
+    from scannertools_tpu_torch.models import facenet as PF
+    from scannertools_tpu_torch.runtime.context import OpContext
+    from scannertools_tpu_torch.runtime.profiler import Profiler
+
+    monkeypatch.setattr(PFO, "GRANULE", 2)
+    state = PF.init_params(4)
+    x, nb, valid = _faces_input()
+    profiler = Profiler()
+    ctx = OpContext(profiler=profiler, device=torch.device("cpu"))
+    builds = PF.fold.builds
+    outs = [PFO.face_embed_forward(ctx, state, _t(x), _t(nb), _t(valid),
+                                   faces_budget=4)[0] for _ in range(2)]
+    assert PF.fold.builds == builds + 1
+    counts = profiler.counts()
+    assert counts["embed:fold"] == 1 and counts["embed:crops"] == 2
+    assert torch.equal(outs[0], outs[1])
+    assert bool(outs[0].abs().sum() > 0)
+
+
 def test_gender_forward_matches_jax(npz):
     trees, paths = npz
     aux = PFO._MODELS["gender"].from_flax(PW.load_params(paths["gender"]))

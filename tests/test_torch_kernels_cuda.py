@@ -36,8 +36,9 @@ emissions off a 16-byte boundary (the 4-byte ring fill), skip flags on
 states 0 and 1 (no state below 0 is read), and no scratch on the warp
 path; both paths' floor probes against their recurrence. FaceNet's run on
 a 144-frame packet's valid crop prefix is held to its run on every
-compacted slot, with one synchronisation in the op. Inputs are made from a
-seed with numpy.
+compacted slot, with one synchronisation in the op; FaceNet folded runs no
+cuDNN layout transpose, agrees with its CPU forward, and folds one state
+once. Inputs are made from a seed with numpy.
 
 Every test here needs a CUDA device and nvcc, and skips elsewhere. The
 module imports no JAX, so it runs where only the port is installed:
@@ -1099,6 +1100,66 @@ def test_face_embed_prefix_on_the_card(cuda_device):
     assert torch.equal(got[1], valid)
     assert torch.equal(got[2], PFO._overflow_rows(sel, sel_ok, want, t, k))
     assert int((got[0].abs().sum(-1) > 0).sum()) == n
+
+
+def test_facenet_folded_on_the_card(cuda_device):
+    """FaceNet at B = 256 on the card, on a raw state with its BatchNorm
+    statistics spread: no cuDNN layout transpose (``nhwcToNchw``,
+    ``nchwToNhwc``) runs in the forward, the embeddings are within 1e-5 of
+    the same weights' forward on the CPU (the folded units' cuDNN calls
+    with their ReLU and sum against the CPU's convolutions and in-place
+    passes), and ``face_embed_forward`` counts ``embed:fold`` once over two
+    calls with one state."""
+    from scannertools_tpu_torch.models import facenet as PF
+    from scannertools_tpu_torch.ops import faces as PFO
+    from scannertools_tpu_torch.runtime.context import OpContext
+    from scannertools_tpu_torch.runtime.profiler import Profiler
+
+    rng = np.random.default_rng(75)
+    state = PF.init_params(0)
+    for k, v in state.items():
+        if k.endswith("running_var"):
+            state[k] = torch.from_numpy(rng.uniform(1e-3, 2, v.shape).astype(
+                np.float32))
+        elif k.endswith("running_mean") or k.endswith("conv2d.bias"):
+            state[k] = torch.from_numpy(rng.normal(0, 0.3, v.shape).astype(
+                np.float32))
+    x = torch.from_numpy(rng.uniform(0, 255, (256, 160, 160, 3)).astype(
+        np.float32))
+    want = PF.embed(state, x)
+    card = {k: v.to(cuda_device) for k, v in state.items()}
+    xd = x.to(cuda_device)
+    PF.embed(card, xd)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = PF.embed(card, xd)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0) > 0]
+    assert any("conv" in n or "gemm" in n for n in names), names
+    assert not [n for n in names
+                if "hwcToNchw" in n or "nchwToNhwc" in n], names
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5, err
+
+    t, k = 4, PFO.MAX_FACES
+    frames = torch.from_numpy(rng.uniform(0, 255, (t, 120, 160, 3)).astype(
+        np.float32)).to(cuda_device)
+    lo = rng.uniform(0.0, 0.6, (t, k, 2))
+    nb = torch.from_numpy(np.concatenate(
+        [lo, lo + rng.uniform(0.2, 0.4, lo.shape)], -1).astype(
+            np.float32)).to(cuda_device)
+    valid = torch.zeros((t, k), dtype=torch.bool, device=cuda_device)
+    valid[:, :3] = True
+    fresh = {n: v.clone() for n, v in card.items()}
+    profiler = Profiler()
+    ctx = OpContext(profiler=profiler, device=cuda_device)
+    builds = PF.fold.builds
+    for _ in range(2):
+        PFO.face_embed_forward(ctx, fresh, frames, nb, valid,
+                               faces_budget=8)
+    assert PF.fold.builds == builds + 1
+    assert profiler.counts().get("embed:fold") == 1
 
 
 # ---------------------------------------------------------------- ctc_viterbi

@@ -25,7 +25,16 @@ test_torch_kernels_cuda.py). Tolerances, and why:
   embeddings. oneDNN's and XLA's convolutions add in other orders;
   measured about 1e-7 relative.
 * The weight converter: exact, both ways.
+* FaceNet folded (``facenet.fold``) against its flax order of operations
+  on the CPU, with BatchNorm statistics spread (variances 1e-8 to 2, so
+  rsqrt(var + eps) reaches 31.6): 1e-5 of the largest output of a unit, a
+  block or the tail, and 1e-5 absolute on the embeddings. Folding moves
+  the rounding of the scale and the shift into the weights and bias, and
+  the sum of up to 2304 products adds in another order: measured 1.8e-7
+  to 7.4e-7 relative (blocks the most), 4.9e-7 on the embeddings.
 """
+
+import types
 
 import cv2
 import jax
@@ -33,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from scannertools_tpu.models import common as JC
 from scannertools_tpu.models import facenet as JF
@@ -46,6 +56,7 @@ from scannertools_tpu_torch.models import mtcnn as PM
 from scannertools_tpu_torch.models import weights as PW
 
 CROP_ATOL = 4e-3
+FOLD_REL = 1e-5
 
 
 def _t(a):
@@ -426,6 +437,131 @@ def test_facenet_matches_flax(npz):
     np.testing.assert_allclose(
         PF.prewhiten(_t(x)).numpy(), np.asarray(jax.jit(JF.prewhiten)(x)),
         rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def spread_facenet():
+    """The port's seeded FaceNet with every BatchNorm's statistics, scale
+    and shift drawn, each with one channel of variance 1e-8 (where
+    rsqrt(var + eps) is largest), and the residual blocks' biases drawn."""
+    state = PF.init_params(0)
+    g = torch.Generator().manual_seed(3)
+    for k, v in state.items():
+        if k.endswith("running_var"):
+            state[k] = torch.rand(v.shape, generator=g) * 2 + 1e-3
+            state[k][0] = 1e-8
+        elif k.endswith("running_mean") or k.endswith("conv2d.bias"):
+            state[k] = torch.randn(v.shape, generator=g) * 0.3
+        elif k.endswith("bn.weight"):
+            state[k] = torch.rand(v.shape, generator=g) + 0.5
+        elif k.endswith("bn.bias"):
+            state[k] = torch.randn(v.shape, generator=g) * 0.1
+    return state
+
+
+def _sub(state, prefix):
+    return {k[len(prefix) + 1:]: v for k, v in state.items()
+            if k.startswith(prefix + ".")}
+
+
+def _bn(state, prefix):
+    """The BatchNorm at ``prefix`` as ``common.batch_norm`` reads it."""
+    return types.SimpleNamespace(eps=PF.BN_EPS, **{
+        k: v for k, v in _sub(state, prefix).items()
+        if k != "num_batches_tracked"})
+
+
+@pytest.mark.parametrize("unit,hw", [
+    ("conv2d_3b", 9),                   # 1x1, 64 -> 80
+    ("conv2d_1a", 15),                  # 3x3 stride 2, 3 -> 32
+    ("mixed_6a.branch0", 9),            # 3x3 stride 2, 256 -> 384
+    ("repeat_2.0.branch1.1", 7),        # 1x7, padding (0, 3)
+    ("repeat_2.0.branch1.2", 7)])       # 7x1, padding (3, 0)
+def test_facenet_folded_unit_matches_flax_order(spread_facenet, unit, hw):
+    """A folded conv unit (one convolution with a bias, ReLU in place)
+    against conv -> ``batch_norm`` -> ReLU on the raw weights."""
+    raw = _sub(spread_facenet, unit)
+    conv = PC._skeleton(PF.InceptionResnetV1).get_submodule(unit).conv
+    x = torch.from_numpy(np.random.default_rng(10).uniform(
+        -1, 1, (2, conv.in_channels, hw, hw)).astype(np.float32))
+    want = torch.relu(PC.batch_norm(_bn(raw, "bn"), F.conv2d(
+        x, raw["conv.weight"], None, conv.stride, conv.padding)))
+    folded = _sub(PF.fold(spread_facenet), unit)
+    assert set(folded) == {"conv.weight", "conv.bias"}
+    got = torch.func.functional_call(PF.BasicConv2d(
+        conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride,
+        conv.padding, folded=True), folded, (x,))
+    assert _rel(got, want) < FOLD_REL
+    assert bool((want > 0).any()) and bool((want == 0).any())
+
+
+@pytest.mark.parametrize("block,cls,init,c,hw", [
+    ("repeat_1.0", PF.Block35, {}, 256, 7),
+    ("repeat_2.0", PF.Block17, {}, 896, 5),
+    ("repeat_3.0", PF.Block8, {}, 1792, 3),
+    ("block8", PF.Block8, {"activate": False}, 1792, 3)])
+def test_facenet_folded_block_matches_flax_order(spread_facenet, block, cls,
+                                                 init, c, hw):
+    """A folded residual block (the scale in ``conv2d``, the sum and the
+    ReLU in place) against ``relu(x + scale * conv2d(branches))`` on the
+    raw weights (the final Block8 without the ReLU)."""
+    x = torch.from_numpy(np.random.default_rng(11).uniform(
+        0, 1, (2, c, hw, hw)).astype(np.float32))
+    want = torch.func.functional_call(
+        cls(**init).eval(), _sub(spread_facenet, block), (x,))
+    got = torch.func.functional_call(
+        cls(**init, folded=True), _sub(PF.fold(spread_facenet), block),
+        (x,))
+    assert _rel(got, want) < FOLD_REL
+    assert bool((want < 0).any()) != init.get("activate", True)
+
+
+def test_facenet_folded_tail_matches_flax_order(spread_facenet):
+    """``last_linear`` with a bias against ``last_linear`` -> ``last_bn``."""
+    x = torch.from_numpy(np.random.default_rng(12).uniform(
+        0, 1, (4, 1792)).astype(np.float32))
+    want = PC.batch_norm(_bn(spread_facenet, "last_bn"), F.linear(
+        x, spread_facenet["last_linear.weight"]))
+    folded = PF.fold(spread_facenet)
+    got = F.linear(x, folded["last_linear.weight"],
+                   folded["last_linear.bias"])
+    assert _rel(got, want) < FOLD_REL
+
+
+def test_facenet_folded_net_matches_flax_order(spread_facenet):
+    """``embed`` (the folded net) against the raw net, in flax's order, on
+    the same crops; both module trees load their weights strictly."""
+    x = torch.from_numpy(np.random.default_rng(13).uniform(
+        0, 255, (2, 160, 160, 3)).astype(np.float32))
+    want = PC.apply_net(PF.InceptionResnetV1, spread_facenet,
+                        PF.prewhiten(x))
+    got = PF.embed(spread_facenet, x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+    PF.InceptionResnetV1().load_state_dict(spread_facenet, strict=True)
+    PF.InceptionResnetV1(folded=True).load_state_dict(
+        PF.fold(spread_facenet), strict=True)
+
+
+def test_facenet_fold_is_built_once_per_weight_set():
+    """``folded`` builds a state's fold once (``fold.builds``), hands a
+    folded state back as it is, and builds again when a tensor of the
+    state is replaced or changed in place."""
+    state = PF.init_params(1)
+    builds = PF.fold.builds
+    first = PF.folded(state)
+    assert PF.folded(state) is first
+    assert PF.folded(dict(state)) is first  # the same tensors
+    assert PF.folded(first) is first
+    assert PF.fold.builds == builds + 1
+    state["last_bn.running_var"] = state["last_bn.running_var"] * 2
+    second = PF.folded(state)
+    assert second is not first and PF.fold.builds == builds + 2
+    state["conv2d_1a.bn.running_mean"].add_(0.5)
+    third = PF.folded(state)
+    assert PF.fold.builds == builds + 3
+    assert not torch.equal(third["conv2d_1a.conv.bias"],
+                           second["conv2d_1a.conv.bias"])
+    assert PF.folded(state) is third
 
 
 @pytest.mark.parametrize("model", ["mtcnn", "facenet", "gender"])
